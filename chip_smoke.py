@@ -13,6 +13,9 @@ Phases (any failure raises and the script exits non-zero):
    counts, zero and one-hot coefficient rows) and the shapes the main path
    gives it; at the main-path shapes, the kernel's and the plain version's
    times (CUDA events, median) beside the least time the card could take.
+   2 is the GF(2^8) kernel (gf backend), 2b the two bit-plane kernels
+   (crs: select-and-XOR, mxu: mod-2 tensor-core matmul), the mxu kernel
+   also against the crs kernel, and the packetize/unpacketize glue.
 3. The main path at real size: a ``StripeStore`` with the paper's P5
    (cp-azure, k=24, r=2, p=2), 1 MiB blocks and 28 nodes; seeded random
    objects until 64 stripes are sealed (1.5 GiB of user data); then
@@ -21,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
    the wall), and a degraded ``read`` and ``get`` with a node down. The
    failed nodes' block files are emptied before each repair and must hash
    as they did when sealed after it, the report's counts must be the
-   reference's, and every kernel must have launched during this phase.
+   reference's, and every kernel of the backend must have launched during
+   this phase. 3 runs the gf backend; 3b the same path once with crs and
+   once with mxu, each in a fresh store whose sealed block files must hash
+   as the gf store's did.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
@@ -29,6 +35,7 @@ outside a checkout, it fails and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import shutil
@@ -44,6 +51,7 @@ SEED = 0
 STRIPES = 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
+INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 # The reference's counts for this store (held by tests/test_torch_store.py
 # against the JAX package): failed nodes -> (patterns, blocks_read,
 # repairs_local, repairs_global).
@@ -80,13 +88,37 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _larger(mem_ms: float, ops_ms: float) -> tuple[float, str]:
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
 def bound_ms(s: int, m: int, k: int, b: int) -> tuple[float, str]:
     """Least time for (m,k) x (S,k,B): every input byte read once and every
     output byte written once at the HBM rate, against one 32-bit operation
     per GF multiply-accumulate at the card's non-tensor peak."""
     mem = (s * (k + m) * b + m * k) / HBM_BYTES_PER_S * 1e3
     ops = s * m * k * b / SCALAR_OPS_PER_S * 1e3
-    return (mem, "bytes") if mem >= ops else (ops, "operations")
+    return _larger(mem, ops)
+
+
+def bit_bound_ms(kernel: str, s: int, bm, p: int) -> tuple[float, str]:
+    """Least time for bitmatrix (R8, K8) x packets (S, K8, P): the bytes as
+    in :func:`bound_ms`, against, for select-and-XOR, one 32-bit XOR per 4
+    packed bytes of every selected row (this bitmatrix's ones) at the
+    non-tensor peak, and for the mod-2 matmul, 2*S*R8'*K8'*8P int8
+    operations (R8', K8' padded to the kernel's tiles) at the tensor-core
+    peak."""
+    from repro_torch.kernels.bitmatrix_encode import mod2_padded_shape
+
+    r8, k8 = bm.shape
+    mem = (s * (k8 + r8) * p + r8 * k8) / HBM_BYTES_PER_S * 1e3
+    if kernel == "bitmatrix_encode":
+        ones = int((bm != 0).sum())
+        ops = s * ones * p / 4 / SCALAR_OPS_PER_S * 1e3
+    else:
+        r8p, k8p = mod2_padded_shape(r8, k8)
+        ops = 2 * s * r8p * k8p * 8 * p / INT8_TENSOR_OPS_PER_S * 1e3
+    return _larger(mem, ops)
 
 
 def main() -> None:
@@ -103,6 +135,7 @@ def main() -> None:
     from repro_torch.core.gf import gf_matmul
     from repro_torch.ftx import StoreConfig, launch_step
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import bitmatrix_encode as bme
     from repro_torch.kernels import gf256_matmul as gm
 
     # ------------------------------------------------ 1. device and build
@@ -207,21 +240,44 @@ def main() -> None:
           f"shapes byte-equal to the plain version; no single PyTorch call "
           f"computes a GF(2^8) matmul, so library_ms is null")
 
+    # ------------------------------- 2b. bit-plane kernels against plain
+    windows = sorted({(s, m, k) for (s, m, k) in shapes
+                      if (m, k) in ((1, 12), (1, 2), (2, 24), (2, 13))})
+    bit_rows = bit_kernel_phase(np, torch, rng, dev, windows,
+                                cfg_parity(cfg), B // 8)
+
     # ------------------------------------------ 3. main path at real size
+    # Each backend's path runs in a fresh store with its wrappers' counts
+    # set to 0 just before and read just after; the crs and mxu stores'
+    # sealed block files must hash as the gf store's did.
+    wrappers = {"gf": (gm.gf256_matmul_batched, gm.gf256_matmul),
+                "crs": (bme.bitmatrix_encode_batched, bme.bitmatrix_encode),
+                "mxu": (bme.mod2_matmul_encode_batched,
+                        bme.mod2_matmul_encode)}
+    launches = {}
+    gf_hashes = None
     (ROOT / "_smoke").mkdir(exist_ok=True)
-    workdir = Path(tempfile.mkdtemp(prefix="store-", dir=ROOT / "_smoke"))
-    try:
-        gm.gf256_matmul.launches = 0
-        gm.gf256_matmul_batched.launches = 0
-        report = drive_main_path(np, torch, cfg, workdir, dev)
-        launches = {"gf256_matmul_batched": gm.gf256_matmul_batched.launches,
-                    "gf256_matmul": gm.gf256_matmul.launches}
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} was never launched on the main path")
-    print(f"[main] kernel launches on the main path: {launches}; "
-          f"{json.dumps(report)}")
+    for backend in ("gf", "crs", "mxu"):
+        workdir = Path(tempfile.mkdtemp(prefix=f"store-{backend}-",
+                                        dir=ROOT / "_smoke"))
+        try:
+            for fn in wrappers[backend]:
+                fn.launches = 0
+            report, hashes = drive_main_path(
+                np, torch, dataclasses.replace(cfg, backend=backend),
+                workdir, dev, wrappers[backend][0], gf_hashes)
+            for fn in wrappers[backend]:
+                launches[fn.__name__] = fn.launches
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        gf_hashes = gf_hashes or hashes
+        for fn in wrappers[backend]:
+            check(launches[fn.__name__] > 0,
+                  f"{fn.__name__} was never launched on the {backend} path")
+        print(f"[main] {backend}: kernel launches on the main path: "
+              + json.dumps({fn.__name__: launches[fn.__name__]
+                            for fn in wrappers[backend]})
+              + f"; {json.dumps(report)}")
 
     s, m, k = big
     kms, pms, bms, by = timings[big]
@@ -242,10 +298,140 @@ def main() -> None:
          "bound_by": flat_by, "library_ms": None,
          "shape": {"S": 1, "m": 4, "k": cfg.k, "B": B}},
     ]
+    for row in bit_rows:
+        row["launches"] = launches[row["name"]]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# The bit-plane kernels: family -> (stripe-batched wrapper, flat wrapper,
+# source, pallas_call line of the TPU kernel each wrapper replaces).
+BIT_FAMILIES = {
+    "bitmatrix_encode": ("bitmatrix_encode_batched", "bitmatrix_encode",
+                         "src/repro_torch/csrc/bitmatrix_encode.cu",
+                         "src/repro/kernels/bitmatrix_encode.py:115",
+                         "src/repro/kernels/bitmatrix_encode.py:60"),
+    "mod2_matmul": ("mod2_matmul_encode_batched", "mod2_matmul_encode",
+                    "src/repro_torch/csrc/mod2_matmul.cu",
+                    "src/repro/kernels/bitmatrix_encode.py:220",
+                    "src/repro/kernels/bitmatrix_encode.py:166"),
+}
+
+
+def bit_kernel_phase(np, torch, rng, dev, windows, parity,
+                     p_main: int) -> list[dict]:
+    """Phase 2b: each bit-plane kernel against its plain version (and the
+    mod-2 kernel against the select-and-XOR one) over a sweep, then at the
+    repair windows ``windows`` ((S, m, reads) as the GF matmul sees them;
+    R8 = 8m, K8 = 8 reads) and the seal-time encode by ``parity``, timed
+    beside its plain version and its bound. Returns one ``kernels`` row
+    per wrapper (launches filled in by the caller)."""
+    from repro_torch.core.gf import matrix_to_bitmatrix
+    from repro_torch.kernels import bitmatrix_encode as bme
+    from repro_torch.kernels import ref
+
+    fams = {fam: (getattr(bme, b), getattr(bme, f), getattr(ref, b + "_ref"),
+                  getattr(ref, f + "_ref"))
+            for fam, (b, f, *_) in BIT_FAMILIES.items()}
+    max_err = {getattr(bme, n).__name__: 0
+               for b, f, *_ in BIT_FAMILIES.values() for n in (b, f)}
+
+    def u8(shape, high=256):
+        return torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint8)
+                                ).to(dev)
+
+    def held(got, want, name, label):
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        max_err[name] = max(max_err[name], err)
+        check(err == 0 and got.shape == want.shape,
+              f"{name} differs from its plain version at {label}")
+
+    def compare(bm, pk, label):
+        outs = []
+        for batched, flat, plain_b, plain_f in fams.values():
+            got = batched(bm, pk)
+            held(got, plain_b(bm, pk), batched.__name__, label)
+            outs.append(got)
+            if pk.shape[0] == 1:
+                held(flat(bm, pk[0]), plain_f(bm, pk[0]), flat.__name__,
+                     label)
+        check(torch.equal(outs[0], outs[1]), f"the mod-2 kernel differs "
+              f"from the select-and-XOR kernel at {label}")
+
+    sweep = 0
+    for r8 in (8, 16, 32, 192):
+        for k8 in (16, 104, 192, 768):
+            bm = u8((r8, k8), 2)
+            bm[0] = 0                            # an all-zero row
+            bm[1] = 0
+            bm[1, k8 // 2] = 1                   # a one-hot row
+            for s in (1, 7, 64):
+                for p in (512, 517):             # 517: a ragged P
+                    compare(bm, u8((s, k8, p)), (s, r8, k8, p))
+                    sweep += 1
+
+    def timed(fn, plain, bm, pk, kernel, label):
+        kms = cuda_ms(torch, lambda: fn(bm, pk), 10)
+        pms = cuda_ms(torch, lambda: plain(bm, pk), 3)
+        s = 1 if pk.ndim == 2 else pk.shape[0]
+        bms, by = bit_bound_ms(kernel, s, bm.cpu().numpy(), pk.shape[-1])
+        print(f"[kernel] {fn.__name__} {label}: {kms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+        return {"ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+
+    rows, big = {}, max(windows, key=lambda w: w[0] * w[2])
+    for (s, m, k) in windows:
+        bm = torch.from_numpy(matrix_to_bitmatrix(
+            rng.integers(0, 256, (m, k), dtype=np.uint8))).to(dev)
+        pk = u8((s, 8 * k, p_main))
+        label = f"S={s} R8={8 * m} K8={8 * k} P={p_main}"
+        compare(bm, pk, label)
+        for fam, (batched, _, plain_b, _) in fams.items():
+            t = timed(batched, plain_b, bm, pk, fam, label)
+            if (s, m, k) == big:
+                rows[batched.__name__] = dict(
+                    t, shape={"S": s, "R8": 8 * m, "K8": 8 * k, "P": p_main})
+    # The seal-time flat encode: the parity rows' bitmatrix over one stripe.
+    bm = torch.from_numpy(matrix_to_bitmatrix(parity)).to(dev)
+    r8, k8 = bm.shape
+    pk = u8((k8, p_main))
+    label = f"R8={r8} K8={k8} P={p_main}"
+    compare(bm, pk[None], label)
+    for fam, (_, flat, _, plain_f) in fams.items():
+        rows[flat.__name__] = dict(
+            timed(flat, plain_f, bm, pk, fam, label),
+            shape={"S": 1, "R8": r8, "K8": k8, "P": p_main})
+    # The packetize/unpacketize glue around the largest window's launch.
+    s, m, k = big
+    blocks = u8((s, k, 8 * p_main))
+    check(torch.equal(ref.unpacketize_batched(ref.packetize_batched(blocks)),
+                      blocks), "unpacketize(packetize(x)) != x on the card")
+    glue = cuda_ms(torch, lambda: ref.unpacketize_batched(
+        ref.packetize_batched(blocks)), 5)
+    print(f"[glue] packetize + unpacketize of the S={s} k={k} window "
+          f"({blocks.numel()} bytes, plain PyTorch on the card): "
+          f"{glue:.4f} ms against "
+          f"{rows['bitmatrix_encode_batched']['ms']:.4f} ms (crs) and "
+          f"{rows['mod2_matmul_encode_batched']['ms']:.4f} ms (mxu) in the "
+          f"kernel")
+    print(f"[kernel] bit-plane: {sweep} sweep shapes and {len(windows) + 1} "
+          f"main-path shapes byte-equal to the plain versions, the mod-2 "
+          f"kernel equal to the select-and-XOR kernel at each; no single "
+          f"PyTorch call computes a GF(2) bit-plane product with repack, so "
+          f"library_ms is null")
+
+    out = []
+    for fam, (bname, fname, source, rep_b, rep_f) in BIT_FAMILIES.items():
+        for name, replaces in ((bname, rep_b), (fname, rep_f)):
+            out.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": None,
+                        "max_abs_err": max_err[name], **rows[name],
+                        "library_ms": None})
+    return out
 
 
 def cfg_parity(cfg):
@@ -254,11 +440,21 @@ def cfg_parity(cfg):
     return make_scheme(cfg.scheme, cfg.k, cfg.r, cfg.p).parity_matrix()
 
 
-def drive_main_path(np, torch, cfg, workdir: Path, device) -> dict:
-    """Seal 64 stripes, repair one and two failed nodes, serve degraded."""
+def drive_main_path(np, torch, cfg, workdir: Path, device, batched,
+                    want_hashes=None) -> tuple[dict, dict]:
+    """Seal 64 stripes, repair one and two failed nodes, serve degraded,
+    through ``cfg.backend``, whose stripe-batched kernel wrapper is
+    ``batched``. The sealed block files must hash as ``want_hashes`` (by
+    path under the store's root) when it is given. Returns the report and
+    the sealed files' hashes."""
     from repro_torch.ftx import StripeStore, repair_failed_nodes
-    from repro_torch.kernels import gf256_matmul as gm
     from repro_torch.kernels import ref
+
+    backend = cfg.backend
+    if device.type == "cuda" or backend in ("crs", "mxu"):
+        ran = backend
+    else:
+        ran = "ref"                      # gf and ref: the CPU's table path
 
     store = StripeStore(workdir, cfg, device=device)
     extent = cfg.k * cfg.block_size
@@ -279,8 +475,13 @@ def drive_main_path(np, torch, cfg, workdir: Path, device) -> dict:
           f"{len(store.stripes)} stripes sealed, expected {STRIPES}")
     hashes = {p: sha(p) for p in workdir.glob("node*/*.blk")}
     check(len(hashes) == STRIPES * store.n, f"{len(hashes)} block files")
-    print(f"[main] sealed {STRIPES} stripes ({total} bytes of objects, "
-          f"{len(hashes)} block files) in {seal_s:.3f} s")
+    by_path = {str(p.relative_to(workdir)): h for p, h in hashes.items()}
+    check(want_hashes is None or by_path == want_hashes,
+          f"{backend}: sealed block files differ from the gf store's")
+    print(f"[main] {backend}: sealed {STRIPES} stripes ({total} bytes of "
+          f"objects, {len(hashes)} block files) in {seal_s:.3f} s"
+          + ("" if want_hashes is None else
+             "; every block file hashes as the gf store's"))
 
     # Seal-time parity against the plain version on the same data blocks.
     st0 = store.stripes[0]
@@ -303,17 +504,16 @@ def drive_main_path(np, torch, cfg, workdir: Path, device) -> dict:
         rebuilt = [p for p in hashes if int(p.parent.name[4:]) in nodes]
         for p in rebuilt:
             p.write_bytes(b"")
-        before = gm.gf256_matmul_batched.launches
+        before = batched.launches
         rep = repair_failed_nodes(store, nodes, device=device)
-        grew = gm.gf256_matmul_batched.launches - before
+        grew = batched.launches - before
         patterns, reads, local, glob = EXPECTED[nodes]
         check(rep.stripes_repaired == STRIPES and rep.patterns == patterns
               and rep.blocks_read == reads and rep.repairs_local == local
               and rep.repairs_global == glob,
               f"repair {nodes}: counts differ from the reference: {rep}")
-        check(rep.effective_backend == ("gf" if device.type == "cuda"
-                                        else "ref"),
-              f"repair {nodes} ran {rep.effective_backend!r}")
+        check(rep.effective_backend == ran,
+              f"repair {nodes} ran {rep.effective_backend!r}, not {ran!r}")
         check(device.type != "cuda" or grew >= rep.launches,
               f"repair {nodes}: the kernel launched {grew} times for "
               f"{rep.launches} reported launches")
@@ -326,12 +526,13 @@ def drive_main_path(np, torch, cfg, workdir: Path, device) -> dict:
         rep, rebuilt, grew = repair(nodes)
         out[f"repair_{'_'.join(map(str, nodes))}"] = {
             f: getattr(rep, f) for f in fields}
-        print(f"[main] repair_failed_nodes{list(nodes)}: "
+        print(f"[main] {backend}: repair_failed_nodes{list(nodes)}: "
               + ", ".join(f"{f}={getattr(rep, f)}" for f in fields)
               + f"; {rebuilt} rebuilt files byte-equal; kernel "
               f"launches {grew}")
     if device.type == "cuda":
-        out["profile_3_4"] = profile_repair(torch, lambda: repair((3, 4)))
+        out["profile_3_4"] = profile_repair(torch, lambda: repair((3, 4)),
+                                            backend)
 
     # Degraded serving with node 3 down: one lost block, and objects whose
     # bytes lie on it.
@@ -362,17 +563,23 @@ def drive_main_path(np, torch, cfg, workdir: Path, device) -> dict:
     get_s = time.perf_counter() - t0
     check(served > 0, "no object lay on the failed node")
     store.revive_node(3)
-    print(f"[main] degraded read of stripe {sid} block {block} in "
+    print(f"[main] {backend}: degraded read of stripe {sid} block {block} in "
           f"{read_s:.4f} s and {served} degraded gets in {get_s:.4f} s: "
           f"byte-equal")
     out["seal_seconds"] = seal_s
-    return out
+    return out, by_path
 
 
-def profile_repair(torch, run) -> dict:
+# Substrings of the port's CUDA kernels' names, as the profiler sees them.
+KERNEL_NAMES = ("gf256_matmul", "bitmatrix_encode", "mod2_matmul")
+
+
+def profile_repair(torch, run, backend: str) -> dict:
     """Where the time goes: ``run`` (one repair) under torch.profiler, its
-    device time by kind (the kernel, host->device and device->host
-    copies, the rest) against the repair's wall time."""
+    device time by kind (the port's kernels, host->device and
+    device->host copies, the rest) against the repair's wall time. For
+    crs and mxu "other" holds the packetize/unpacketize glue, which runs
+    as plain PyTorch elementwise kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -384,7 +591,7 @@ def profile_repair(torch, run) -> dict:
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
-        kind = ("kernel" if "gf256_matmul" in evt.name
+        kind = ("kernel" if any(n in evt.name for n in KERNEL_NAMES)
                 else "h2d" if "HtoD" in evt.name
                 else "d2h" if "DtoH" in evt.name else "other")
         device_us[kind] += evt.time_range.elapsed_us()
@@ -395,14 +602,25 @@ def profile_repair(torch, run) -> dict:
               "device_busy_share": (busy_s / rep.wall_seconds
                                     if busy_s else None)}
     if busy_s:
-        print(f"[profile] repair_failed_nodes[3, 4] under torch.profiler: "
+        print(f"[profile] {backend}: repair_failed_nodes[3, 4] under "
+              f"torch.profiler: "
               f"wall {rep.wall_seconds} s, compute span "
               f"{rep.compute_seconds} s; device ms: "
               + ", ".join(f"{k} {v / 1e3}" for k, v in device_us.items())
-              + f"; device busy {result['device_busy_share']} of the wall")
+              + f"; device busy {result['device_busy_share']} of the wall"
+              + ("; other is the packetize/unpacketize glue (plain "
+                 "PyTorch elementwise kernels) and any other op"
+                 if backend in ("crs", "mxu") else ""))
     else:
         print("[profile] torch.profiler recorded no device time: device "
               "busy share not measured")
+    # Host time by operator (self time, summed over the pipeline's
+    # threads): where a compute span goes that the device does not show.
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)[:6]
+    result["host_self_ms"] = {key: us / 1e3 for us, _, key in host}
+    print(f"[profile] {backend}: host self ms by operator, top 6: "
+          + "; ".join(f"{key} {us / 1e3} ({n} calls)" for us, n, key in host))
     return result
 
 

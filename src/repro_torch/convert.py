@@ -5,7 +5,9 @@ packages is a scheme (its generator matrix and group structure), a
 compiled repair plan (coefficients, reads, targets and the structural
 plan behind them) and a stripe store's manifest. :func:`from_reference`
 turns any of them, as the reference holds them, into the port's object, so
-both packages can run the same plans over the same stores.
+both packages can run the same plans over the same stores. A plan's GF(2)
+bitmatrix (the crs/mxu backends' operand) does not cross: both sides
+derive it from the coefficients (``CompiledPlan.bit_coeffs``).
 """
 from __future__ import annotations
 

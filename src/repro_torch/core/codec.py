@@ -2,8 +2,8 @@
 
 Planning (which blocks to read, with which GF coefficients) happens on the
 host in numpy — mirroring the paper's coordinator — and the byte crunching
-runs through the GF(2^8) kernel in ``repro_torch.kernels`` on the codec's
-device.
+runs through the backend's kernel in ``repro_torch.kernels`` on the
+codec's device.
 
 The reconstruction rule is fully general: to rebuild block ``b`` from a
 read-set ``R`` we solve ``gen[R].T @ x = gen[b]`` over GF(2^8) and combine
@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import (as_u8, default_backend, encode_op,
-                                     gf_matmul_op, require_backend)
+from repro_torch.kernels.ops import (BIT_BACKENDS, as_u8, default_backend,
+                                     encode_op, gf_matmul_op,
+                                     require_backend)
 
 from .planner import RepairPlanner
 from .repair import MultiRepairPlan, RepairPlan
@@ -48,6 +49,10 @@ class StripeCodec:
         self.device = resolve_device(self.device)
         if self.planner is None:
             self.planner = RepairPlanner(self.scheme)
+
+    def _bits(self, compiled) -> Optional[np.ndarray]:
+        """The plan's cached GF(2) expansion when the backend needs one."""
+        return compiled.bit_coeffs() if self.backend in BIT_BACKENDS else None
 
     def _stack(self, blocks) -> torch.Tensor:
         return torch.stack([as_u8(b, self.device) for b in blocks], dim=0)
@@ -71,7 +76,8 @@ class StripeCodec:
         return self.planner.coeffs_for(target, tuple(reads))
 
     def combine(self, coeffs: np.ndarray, blocks: Sequence) -> torch.Tensor:
-        """x (|R|,) . blocks (|R|, B) -> (B,) on device via the GF kernel."""
+        """x (|R|,) . blocks (|R|, B) -> (B,) on device via the backend's
+        kernel."""
         out = gf_matmul_op(np.asarray(coeffs, np.uint8).reshape(1, -1),
                            self._stack(blocks), backend=self.backend)
         return out[0]
@@ -95,7 +101,8 @@ class StripeCodec:
         compiled = self.planner.multi_plan(failed)
         out = gf_matmul_op(compiled.coeffs,
                            self._stack(available[b] for b in compiled.reads),
-                           backend=self.backend)
+                           backend=self.backend,
+                           bitmatrix=self._bits(compiled))
         rebuilt = {b: out[i] for i, b in enumerate(compiled.targets)}
         return rebuilt, compiled.meta
 
@@ -104,7 +111,8 @@ class StripeCodec:
         compiled = self.planner.decode_plan(available.keys())
         return gf_matmul_op(compiled.coeffs,
                             self._stack(available[b] for b in compiled.reads),
-                            backend=self.backend)
+                            backend=self.backend,
+                            bitmatrix=self._bits(compiled))
 
 
 def cached_codec(scheme_key: tuple, backend: str | None = None,

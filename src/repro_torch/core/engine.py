@@ -4,7 +4,9 @@ The planner/executor split: :class:`~repro_torch.core.planner.
 RepairPlanner` compiles and caches the host-side GF algebra; this module's
 :class:`BatchedCodecEngine` executes a compiled plan over a whole *batch*
 of stripes at once — ``(S, k, B)`` in, ``(S, n, B)`` out — as a single
-launch of the stripe-grid CUDA kernel.
+launch of the backend's stripe-batched CUDA kernel (the GF(2^8) table
+product for gf, the bit-plane products for crs/mxu, which take the plan's
+cached GF(2) expansion).
 
 Batches are homogeneous in the failure pattern, not in S: callers group
 stripes by pattern (``ftx.stripestore`` does this per fleet repair) and may
@@ -26,7 +28,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import MeshRules
 from repro_torch.dist.stripes import stripe_span
-from repro_torch.kernels.ops import (as_u8, default_backend,
+from repro_torch.kernels.ops import (BIT_BACKENDS, as_u8, default_backend,
                                      effective_backend, encode_batch_op,
                                      gf_matmul_batch_op, require_backend)
 
@@ -67,6 +69,10 @@ class BatchedCodecEngine:
     def _rules(self, mesh_rules: Optional[MeshRules]) -> Optional[MeshRules]:
         return self.mesh_rules if mesh_rules is None else mesh_rules
 
+    def _bits(self, plan: CompiledPlan) -> Optional[np.ndarray]:
+        """The plan's cached GF(2) expansion when the backend needs one."""
+        return plan.bit_coeffs() if self.backend in BIT_BACKENDS else None
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -106,9 +112,10 @@ class BatchedCodecEngine:
         mr = self._rules(mesh_rules)
         self.last_span = stripe_span(stacked.shape, mr)
         self.effective_backend = effective_backend(self.backend, self.device)
+        bitmatrix = self._bits(plan)
         t0 = time.perf_counter()
         out = gf_matmul_batch_op(plan.coeffs, stacked, backend=self.backend,
-                                 mesh_rules=mr)
+                                 bitmatrix=bitmatrix, mesh_rules=mr)
         self._sync()
         self.last_exec_seconds = time.perf_counter() - t0
         return out
@@ -131,7 +138,7 @@ class BatchedCodecEngine:
         self.effective_backend = effective_backend(self.backend, self.device)
         plan = self.planner.encode_plan()
         parity = encode_batch_op(plan.coeffs, data, backend=self.backend,
-                                 mesh_rules=mr)
+                                 mesh_rules=mr, bitmatrix=self._bits(plan))
         return torch.cat([data, parity], dim=1)
 
     # ------------------------------------------------------------- repair

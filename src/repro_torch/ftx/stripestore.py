@@ -80,8 +80,9 @@ class StoreConfig:
     r: int = 2
     p: int = 2
     block_size: int = 1 << 20          # bytes per block
-    # Kernel backend (kernels.ops.BACKENDS): REPRO_BACKEND when set, else
-    # "gf" — the hand-written CUDA kernel — when this machine has CUDA,
+    # Kernel backend (kernels.ops.BACKENDS; gf, crs and mxu each run their
+    # own CUDA kernel on a card): REPRO_BACKEND when set, else
+    # "gf" — the GF(2^8) CUDA kernel — when this machine has CUDA,
     # else "ref". The one deliberate difference from the reference, whose
     # default is "ref" everywhere: on a card the default path must run the
     # kernel, never the plain version. The factory cannot see the store's

@@ -1,5 +1,7 @@
-"""GF(2^8) kernels of the port: the hand-written CUDA matmul
-(``gf256_matmul``), its plain PyTorch versions (``ref``) and the backend
-dispatch layer (``ops``)."""
-from .ops import encode_op, gf_matmul_batch_op, gf_matmul_op  # noqa: F401
-from . import ref  # noqa: F401
+"""Erasure-coding kernels of the port: the hand-written CUDA GF(2^8)
+matmul (``gf256_matmul``) and GF(2) bit-plane products
+(``bitmatrix_encode``), their plain PyTorch versions (``ref``) and the
+backend dispatch layer (``ops``)."""
+from .ops import (crs_encode_op, encode_batch_op, encode_op,  # noqa: F401
+                  gf_matmul_batch_op, gf_matmul_op)
+from . import bitmatrix_encode, ref  # noqa: F401

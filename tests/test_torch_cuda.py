@@ -1,0 +1,138 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a card. The file
+imports neither JAX nor the reference, so it runs on a machine with
+PyTorch built for CUDA and ``nvcc`` alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The kernels build at first use into ``src/repro_torch/_build/``. Erasure
+coding is exact: every comparison is byte for byte.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import bitmatrix_encode as bme  # noqa: E402
+from repro_torch.kernels import gf256_matmul as gm  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# tests/test_kernels.py's (m, k, B) sweep.
+GF_SHAPES = [(2, 4, 128), (4, 6, 256), (8, 24, 512), (9, 96, 128),
+             (3, 17, 384)]
+# (R8, K8, P): repair-window, seal and decode widths of the P5 store at a
+# small P, ragged ones, and a deep bitmatrix at a wider P.
+BIT_SHAPES = [(8, 16, 64), (16, 104, 40), (32, 192, 33), (24, 40, 7),
+              (192, 192, 16), (8, 768, 4096), (16, 96, 4096 + 5)]
+BIT_WRAPPERS = {
+    "bitmatrix_encode": (bme.bitmatrix_encode, bme.bitmatrix_encode_batched,
+                         ref.bitmatrix_encode_ref,
+                         ref.bitmatrix_encode_batched_ref),
+    "mod2_matmul_encode": (bme.mod2_matmul_encode,
+                           bme.mod2_matmul_encode_batched,
+                           ref.mod2_matmul_encode_ref,
+                           ref.mod2_matmul_encode_batched_ref),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    return torch.device("cuda", 0)
+
+
+def _u8(rng, shape, device, high=256):
+    return torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint8)
+                            ).to(device)
+
+
+@pytest.mark.parametrize("m,k,b", GF_SHAPES)
+@pytest.mark.parametrize("s,ragged", [(1, 0), (7, 13), (64, 1)])
+def test_cuda_gf_kernel_matches_plain_version(cuda, m, k, b, s, ragged,
+                                              rng):
+    c = _u8(rng, (m, k), cuda)
+    c[0] = 0                                     # an all-zero row
+    d = _u8(rng, (s, k, b + ragged), cuda)
+    before = gm.gf256_matmul_batched.launches
+    got = gm.gf256_matmul_batched(c, d)
+    want = ref.gf256_matmul_batched_ref(c, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert gm.gf256_matmul_batched.launches == before + 1
+    flat = gm.gf256_matmul(c, d[0])
+    torch.cuda.synchronize()
+    assert torch.equal(flat, want[0])
+
+
+@pytest.mark.parametrize("name", sorted(BIT_WRAPPERS))
+@pytest.mark.parametrize("r8,k8,p", BIT_SHAPES)
+@pytest.mark.parametrize("s", [1, 7, 64])
+def test_cuda_bit_plane_kernel_matches_plain_version(cuda, name, r8, k8, p,
+                                                     s, rng):
+    bm = _u8(rng, (r8, k8), cuda, 2)
+    bm[0] = 0                                    # an all-zero row
+    bm[1] = 0
+    bm[1, k8 // 2] = 1                           # a one-hot row
+    pk = _u8(rng, (s, k8, p), cuda)
+    flat, batched, flat_ref, batched_ref = BIT_WRAPPERS[name]
+    before = (batched.launches, flat.launches)
+    got = batched(bm, pk)
+    want = batched_ref(bm, pk)
+    flat_got = flat(bm, pk[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(flat_got, flat_ref(bm, pk[0]))
+    assert (batched.launches, flat.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+
+
+@pytest.mark.parametrize("r8,k8,p", BIT_SHAPES)
+def test_cuda_mod2_kernel_matches_select_and_xor_kernel(cuda, r8, k8, p,
+                                                        rng):
+    bm = _u8(rng, (r8, k8), cuda, 2)
+    pk = _u8(rng, (7, k8, p), cuda)
+    got = bme.mod2_matmul_encode_batched(bm, pk)
+    want = bme.bitmatrix_encode_batched(bm, pk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cuda_packetize_round_trip(cuda, rng):
+    blocks = _u8(rng, (3, 24, 8 * 1000), cuda)
+    packets = ref.packetize_batched(blocks)
+    cpu = ref.packetize_batched(blocks.cpu())
+    assert torch.equal(packets.cpu(), cpu)
+    assert torch.equal(ref.unpacketize_batched(packets), blocks)
+
+
+@pytest.mark.parametrize("backend", ["gf", "crs", "mxu"])
+def test_cuda_main_path_matches_cpu(cuda, backend, tmp_path, rng):
+    """A store on the card and a store on the CPU, same operations: the
+    same block files and the same report counts, and each report names
+    the formulation that ran."""
+    from repro_torch.ftx import StoreConfig, StripeStore, repair_failed_nodes
+
+    cfg = StoreConfig(scheme="cp-azure", k=6, r=2, p=2, block_size=4096,
+                      backend=backend)
+    stores = [StripeStore(tmp_path / d.type, cfg, device=d)
+              for d in (cuda, torch.device("cpu"))]
+    for i in range(12):
+        blob = rng.integers(0, 256, int(rng.integers(100, 30000)),
+                            dtype=np.uint8)
+        for st in stores:
+            st.put(f"o{i}", blob)
+    reports = []
+    for st in stores:
+        st.seal()
+        reports.append(repair_failed_nodes(st, [1, 2], device=st.device))
+    assert reports[0].effective_backend == backend
+    assert reports[1].effective_backend == ("ref" if backend == "gf"
+                                            else backend)
+    assert reports[0].blocks_read == reports[1].blocks_read
+    for f in sorted((tmp_path / "cuda").glob("node*/*.blk")):
+        twin = tmp_path / "cpu" / f.relative_to(tmp_path / "cuda")
+        assert f.read_bytes() == twin.read_bytes()

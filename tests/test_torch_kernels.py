@@ -3,9 +3,10 @@
 On this CPU the kernel wrappers run their plain PyTorch versions; the
 tests hold those to the reference's oracles and Pallas kernel, hold the
 kernel's table argument to the field's multiplication table, and check
-the dispatch layer (backends, effective backend, errors). The tests marked
-``cuda`` hold the CUDA kernel itself to its plain version and skip without
-a card.
+the dispatch layer (backends, effective backend, errors). The bit-plane
+kernels have their own file, ``test_torch_bitplane.py``, and the CUDA
+kernels are held to their plain versions on the card in
+``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -154,16 +155,24 @@ def test_effective_backend_mirrors_reference():
 
 
 @pytest.mark.parametrize("backend", ["crs", "mxu"])
-def test_bit_plane_backends_raise_not_implemented(backend, rng):
+def test_bit_plane_backends_match_reference(backend, rng):
+    """The four ops run crs and mxu (bit-plane plain versions on the CPU)
+    and give the reference's bytes with the same backend."""
     coef = rng.integers(0, 256, (2, 3), dtype=np.uint8)
-    data = _t(rng.integers(0, 256, (2, 3, 16), dtype=np.uint8))
-    calls = [lambda: ops.gf_matmul_op(coef, data[0], backend=backend),
-             lambda: ops.gf_matmul_batch_op(coef, data, backend=backend),
-             lambda: ops.encode_op(coef, data[0], backend=backend),
-             lambda: ops.encode_batch_op(coef, data, backend=backend)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call()
+    data = rng.integers(0, 256, (2, 3, 16), dtype=np.uint8)
+    pairs = [(ops.gf_matmul_op(coef, _t(data[0]), backend=backend),
+              ref_ops.gf_matmul_op(coef, data[0], backend=backend)),
+             (ops.gf_matmul_batch_op(coef, _t(data), backend=backend),
+              ref_ops.gf_matmul_batch_op(coef, data, backend=backend)),
+             (ops.encode_op(coef, _t(data[0]), backend=backend),
+              ref_ops.encode_op(coef, data[0], backend=backend)),
+             (ops.encode_batch_op(coef, _t(data), backend=backend),
+              ref_ops.encode_batch_op(coef, data, backend=backend))]
+    for got, want in pairs:
+        want = np.asarray(want)
+        assert got.shape == want.shape and (got.numpy() == want).all()
+    assert ops.effective_backend(backend, "cpu") \
+        == ref_ops.effective_backend(backend, interpret=True) == backend
 
 
 def test_unknown_backend_raises(rng):
@@ -215,61 +224,11 @@ def test_build_paths(monkeypatch, tmp_path):
     path = _build.library_path("gf256_matmul")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libgf256_matmul-") and path.suffix == ".so"
-    assert _build.SOURCES == ("gf256_matmul",)
-    assert (_build.CSRC / "gf256_matmul.cu").is_file()
+    assert _build.SOURCES == ("gf256_matmul", "bitmatrix_encode",
+                              "mod2_matmul")
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
-
-
-# ----------------------------------------------------- on the card only
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run on the GPU machine)")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,b", SHAPES)
-@pytest.mark.parametrize("s,ragged", [(1, 0), (7, 13), (64, 1)])
-def test_cuda_kernel_matches_plain_version(cuda, m, k, b, s, ragged, rng):
-    coef, data = _case(rng, s, m, k, b + ragged)
-    c, d = _t(coef).to(cuda), _t(data).to(cuda)
-    before = gm.gf256_matmul_batched.launches
-    got = gm.gf256_matmul_batched(c, d)
-    want = ref.gf256_matmul_batched_ref(c, d)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert gm.gf256_matmul_batched.launches == before + 1
-    flat = gm.gf256_matmul(c, d[0])
-    torch.cuda.synchronize()
-    assert torch.equal(flat, want[0])
-
-
-@pytest.mark.cuda
-def test_cuda_main_path_matches_cpu(cuda, tmp_path, rng):
-    """A store on the card and a store on the CPU, same operations: the
-    same block files and the same report counts."""
-    from repro_torch.ftx import StoreConfig, StripeStore, repair_failed_nodes
-
-    cfg = StoreConfig(scheme="cp-azure", k=6, r=2, p=2, block_size=4096,
-                      backend="gf")
-    stores = [StripeStore(tmp_path / d.type, cfg, device=d)
-              for d in (cuda, torch.device("cpu"))]
-    for i in range(12):
-        blob = rng.integers(0, 256, int(rng.integers(100, 30000)),
-                            dtype=np.uint8)
-        for st in stores:
-            st.put(f"o{i}", blob)
-    reports = []
-    for st in stores:
-        st.seal()
-        reports.append(repair_failed_nodes(st, [1, 2], device=st.device))
-    assert reports[0].effective_backend == "gf"
-    assert reports[1].effective_backend == "ref"
-    assert reports[0].blocks_read == reports[1].blocks_read
-    for f in sorted((tmp_path / "cuda").glob("node*/*.blk")):
-        twin = tmp_path / "cpu" / f.relative_to(tmp_path / "cuda")
-        assert f.read_bytes() == twin.read_bytes()

@@ -70,6 +70,14 @@ def _assert_same_report(got, want):
     ((1,), False, "none", "ref"),
     ((1, 2), True, "none", "ref"),
     ((1, 2), False, "global", "gf"),
+    ((1,), True, "global", "crs"),
+    ((1,), False, "none", "crs"),
+    ((1, 2), True, "none", "crs"),
+    ((1, 2), False, "global", "crs"),
+    ((1,), True, "none", "mxu"),
+    ((1,), False, "global", "mxu"),
+    ((1, 2), True, "global", "mxu"),
+    ((1, 2), False, "none", "mxu"),
 ])
 def test_twin_stores_repair_identically(nodes, pipeline, schedule, backend,
                                         tmp_path, rng):
@@ -87,7 +95,9 @@ def test_twin_stores_repair_identically(nodes, pipeline, schedule, backend,
                               options=RepairOptions(pipeline=pipeline,
                                                     schedule=schedule))
     _assert_same_report(got, want)
-    assert got.effective_backend == "ref"          # gf or ref on the CPU
+    # gf and ref run the plain table path on the CPU; crs and mxu their own.
+    assert got.effective_backend == ("ref" if backend in ("gf", "ref")
+                                     else backend)
     assert got.stripes_repaired == len(port.stripes) and got.launches > 0
     assert got.pipelined == pipeline
     for st in (ref, port):
@@ -97,9 +107,17 @@ def test_twin_stores_repair_identically(nodes, pipeline, schedule, backend,
         assert (port.get(key) == blob).all()
 
 
-@pytest.mark.parametrize("nodes", [(3,), (3, 4)])
-def test_twin_stores_serve_degraded_identically(nodes, tmp_path, rng):
-    ref, port, blobs = _twins(tmp_path, rng, backend="ref")
+@pytest.mark.parametrize("nodes,backend", [
+    pytest.param((3,), "ref", id="nodes0"),
+    pytest.param((3, 4), "ref", id="nodes1"),
+    pytest.param((3,), "crs", id="nodes0-crs"),
+    pytest.param((3, 4), "crs", id="nodes1-crs"),
+    pytest.param((3,), "mxu", id="nodes0-mxu"),
+    pytest.param((3, 4), "mxu", id="nodes1-mxu"),
+])
+def test_twin_stores_serve_degraded_identically(nodes, backend, tmp_path,
+                                                rng):
+    ref, port, blobs = _twins(tmp_path, rng, backend=backend)
     for st in (ref, port):
         for node in nodes:
             st.fail_node(node)
@@ -121,7 +139,8 @@ def test_twin_stores_serve_degraded_identically(nodes, tmp_path, rng):
         assert getattr(g, f) == getattr(w, f), f
     assert port.telemetry.sim_seconds == pytest.approx(
         ref.telemetry.sim_seconds, rel=1e-9)
-    assert port.engine.effective_backend == "ref"
+    assert port.engine.effective_backend == ref.engine.effective_backend \
+        == backend
 
 
 def test_manifest_round_trip_and_from_reference(tmp_path, rng):
