@@ -5,9 +5,11 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Device and build: the card's name and power limit, and the seconds it
+1. Device and build: the card's name and power limit, the seconds it
    takes to build every CUDA source of ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, started together).
+   ``nvcc`` per source, started together), and each kernel's registers,
+   shared memory and spills as ``nvcc -Xptxas -v`` reported them (the
+   mod-2 kernel must not spill).
 2. Each kernel against its plain PyTorch version on the card, byte for
    byte, over a sweep of shapes (ragged widths, odd and large stripe
    counts, zero and one-hot coefficient rows) and the shapes the main path
@@ -15,7 +17,10 @@ Phases (any failure raises and the script exits non-zero):
    times (CUDA events, median) beside the least time the card could take.
    2 is the GF(2^8) kernel (gf backend), 2b the two bit-plane kernels
    (crs: select-and-XOR, mxu: mod-2 tensor-core matmul), the mxu kernel
-   also against the crs kernel, and the packetize/unpacketize glue.
+   also against the crs kernel, the mod-2 kernel's edges (K8 and R8 off
+   its tiles, packets and out 1 byte off alignment, more work items than
+   one wave of its persistent grid, a bitmatrix too deep for shared
+   memory), and the packetize/unpacketize glue.
 3. The main path at real size: a ``StripeStore`` with the paper's P5
    (cp-azure, k=24, r=2, p=2), 1 MiB blocks and 28 nodes; seeded random
    objects until 64 stripes are sealed (1.5 GiB of user data); then
@@ -38,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -148,6 +154,18 @@ def main() -> None:
     _build.build()
     print(f"[build] {len(_build.SOURCES)} CUDA source(s) in "
           f"{time.perf_counter() - t0:.3f} s")
+    for name in _build.SOURCES:
+        entries = _build.ptxas_report(name)
+        check(bool(entries), f"no -Xptxas -v report for {name}")
+        for e in entries:
+            print(f"[ptxas] {name} {kernel_name(e['kernel'])}: "
+                  f"{e['registers']} registers, {e['smem']} bytes static "
+                  f"shared memory, {e['stack']} bytes stack, "
+                  f"{e['spill_stores']} bytes spill stores, "
+                  f"{e['spill_loads']} bytes spill loads")
+            check(name != "mod2_matmul"
+                  or e["spill_stores"] + e["spill_loads"] == 0,
+                  f"{name}: {kernel_name(e['kernel'])} spills registers")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
 
@@ -307,6 +325,20 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def kernel_name(mangled: str) -> str:
+    """``mod2_matmul_kernel<1, true>`` for a kernel's mangled name (as
+    ``c++filt`` gives it, without namespace and arguments), or the mangled
+    name where there is no ``c++filt``."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return mangled
+    name = subprocess.run([tool, mangled], capture_output=True, text=True
+                          ).stdout.strip() or mangled
+    name = name.replace("(anonymous namespace)::", "")
+    m = re.match(r"(?:void )?(?:\w+::)*(\w+(?:<[^>]*>)?)\(", name)
+    return m.group(1) if m else name
+
+
 # The bit-plane kernels: family -> (stripe-batched wrapper, flat wrapper,
 # source, pallas_call line of the TPU kernel each wrapper replaces).
 BIT_FAMILIES = {
@@ -362,17 +394,55 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
         check(torch.equal(outs[0], outs[1]), f"the mod-2 kernel differs "
               f"from the select-and-XOR kernel at {label}")
 
+    def sweep_bm(r8, k8):
+        bm = u8((r8, k8), 2)
+        bm[0] = 0                                # an all-zero row
+        bm[1] = 0
+        bm[1, k8 // 2] = 1                       # a one-hot row
+        return bm
+
+    # R8 24 and 40 and K8 40 and 104 are off the mod-2 kernel's 16-row
+    # groups and 32-deep k steps.
     sweep = 0
-    for r8 in (8, 16, 32, 192):
-        for k8 in (16, 104, 192, 768):
-            bm = u8((r8, k8), 2)
-            bm[0] = 0                            # an all-zero row
-            bm[1] = 0
-            bm[1, k8 // 2] = 1                   # a one-hot row
+    for r8 in (8, 16, 24, 32, 40, 192):
+        for k8 in (16, 40, 104, 192, 768):
+            bm = sweep_bm(r8, k8)
             for s in (1, 7, 64):
                 for p in (512, 517):             # 517: a ragged P
                     compare(bm, u8((s, k8, p)), (s, r8, k8, p))
                     sweep += 1
+    # More (stripe, 32-byte tile) work items than one wave of the mod-2
+    # kernel's persistent grid, and a bitmatrix whose fragments pass its
+    # shared-memory limit.
+    for (s, r8, k8, p) in ((64, 16, 192, 16384), (64, 32, 104, 16384),
+                           (7, 24, 2056, 517), (3, 40, 2056, 4096)):
+        compare(sweep_bm(r8, k8), u8((s, k8, p)), (s, r8, k8, p))
+        sweep += 1
+    # packets and out 1 byte off a 16-byte boundary (contiguous views of
+    # buffers sliced at 1), through the C interface, since the wrappers
+    # allocate an aligned out.
+    for (s, r8, k8, p) in ((7, 16, 192, 4096), (7, 24, 40, 1000),
+                           (3, 40, 104, 517), (1, 32, 192, 4096)):
+        bm = sweep_bm(r8, k8)
+        pk = u8((s * k8 * p + 1,))[1:].view(s, k8, p)
+        want = fams["bitmatrix_encode"][2](bm, pk)
+        outs = []
+        for fam, (batched, *_) in fams.items():
+            buf = torch.zeros(s * r8 * p + 2, dtype=torch.uint8, device=dev)
+            out = buf[1:-1].view(s, r8, p)
+            check(pk.data_ptr() % 16 == 1 and out.data_ptr() % 16 == 1,
+                  "the views are not 1 byte off alignment")
+            err = bme._launcher(fam)(
+                bm.data_ptr(), pk.data_ptr(), out.data_ptr(), r8, k8, p, s,
+                torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{fam} launch failed: CUDA error {err}")
+            held(out, want, batched.__name__, ("unaligned", s, r8, k8, p))
+            check(int(buf[0]) == 0 and int(buf[-1]) == 0,
+                  f"{fam} wrote outside out at ({s}, {r8}, {k8}, {p})")
+            outs.append(out)
+        check(torch.equal(outs[0], outs[1]), "the mod-2 kernel differs from "
+              "the select-and-XOR kernel off alignment")
+        sweep += 1
 
     def timed(fn, plain, bm, pk, kernel, label):
         kms = cuda_ms(torch, lambda: fn(bm, pk), 10)

@@ -47,10 +47,11 @@ def _launcher(source: str):
 
 def mod2_padded_shape(r8: int, k8: int) -> tuple[int, int]:
     """The (rows, depth) the mod-2 kernel multiplies for an (R8, K8)
-    bitmatrix: rows padded to its block tile (16, 32, or groups of 64, as
-    ``csrc/mod2_matmul.cu`` picks it), depth to its 16-deep k step."""
-    tile = 16 if r8 <= 16 else 32 if r8 <= 32 else 64
-    return -(-r8 // tile) * tile, -(-k8 // 16) * 16
+    bitmatrix: rows padded to the 16-row MMA groups that share each packet
+    fragment (one group for R8 <= 16, else pairs of groups, as
+    ``csrc/mod2_matmul.cu`` picks them), depth to its 32-deep k step."""
+    rows = 16 if r8 <= 16 else 32
+    return -(-r8 // rows) * rows, -(-k8 // 32) * 32
 
 
 def _check(bitmatrix: torch.Tensor, packets: torch.Tensor,

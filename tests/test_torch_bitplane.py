@@ -186,10 +186,10 @@ def test_wrappers_check_their_inputs(name, rng):
 
 
 def test_mod2_padded_shape_follows_the_kernel_tiles():
-    assert bme.mod2_padded_shape(8, 104) == (16, 112)
-    assert bme.mod2_padded_shape(16, 16) == (16, 16)
+    assert bme.mod2_padded_shape(8, 104) == (16, 128)
+    assert bme.mod2_padded_shape(16, 16) == (16, 32)
     assert bme.mod2_padded_shape(32, 192) == (32, 192)
-    assert bme.mod2_padded_shape(40, 8) == (64, 16)
+    assert bme.mod2_padded_shape(40, 8) == (64, 32)
     assert bme.mod2_padded_shape(192, 768) == (192, 768)
 
 

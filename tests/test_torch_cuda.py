@@ -24,9 +24,15 @@ pytestmark = pytest.mark.cuda
 GF_SHAPES = [(2, 4, 128), (4, 6, 256), (8, 24, 512), (9, 96, 128),
              (3, 17, 384)]
 # (R8, K8, P): repair-window, seal and decode widths of the P5 store at a
-# small P, ragged ones, and a deep bitmatrix at a wider P.
+# small P, ragged ones, and a deep bitmatrix at a wider P; then the mod-2
+# kernel's edges: K8 not a multiple of its 32-deep k step (40, 104), R8 not
+# a multiple of its 16-row groups (24, 40), enough (stripe, 32-byte tile)
+# work items at S=64 to pass one wave of its persistent grid (P=16384),
+# and a bitmatrix too deep for its fragments to stay in shared memory.
 BIT_SHAPES = [(8, 16, 64), (16, 104, 40), (32, 192, 33), (24, 40, 7),
-              (192, 192, 16), (8, 768, 4096), (16, 96, 4096 + 5)]
+              (192, 192, 16), (8, 768, 4096), (16, 96, 4096 + 5),
+              (24, 104, 4096), (40, 40, 4096), (40, 104, 300),
+              (16, 192, 16384), (24, 2056, 64)]
 BIT_WRAPPERS = {
     "bitmatrix_encode": (bme.bitmatrix_encode, bme.bitmatrix_encode_batched,
                          ref.bitmatrix_encode_ref,
@@ -99,6 +105,32 @@ def test_cuda_mod2_kernel_matches_select_and_xor_kernel(cuda, r8, k8, p,
     want = bme.bitmatrix_encode_batched(bm, pk)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("source,plain", [
+    ("bitmatrix_encode", ref.bitmatrix_encode_batched_ref),
+    ("mod2_matmul", ref.mod2_matmul_encode_batched_ref)])
+@pytest.mark.parametrize("r8,k8,p", [(16, 192, 4096), (24, 40, 1000),
+                                     (40, 104, 517)])
+def test_cuda_bit_plane_kernels_take_pointers_off_alignment(cuda, source,
+                                                            plain, r8, k8,
+                                                            p, rng):
+    """packets and out 1 byte off a 16-byte boundary (contiguous views of
+    buffers sliced at 1), launched through the C interface since the
+    wrappers allocate an aligned out."""
+    s = 7
+    bm = _u8(rng, (r8, k8), cuda, 2)
+    pk = _u8(rng, (s * k8 * p + 1,), cuda)[1:].view(s, k8, p)
+    out_buf = torch.zeros(s * r8 * p + 2, dtype=torch.uint8, device=cuda)
+    out = out_buf[1:-1].view(s, r8, p)
+    assert pk.data_ptr() % 16 == 1 and out.data_ptr() % 16 == 1
+    err = bme._launcher(source)(bm.data_ptr(), pk.data_ptr(), out.data_ptr(),
+                                r8, k8, p, s,
+                                torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, plain(bm, pk))
+    assert int(out_buf[0]) == 0 and int(out_buf[-1]) == 0
 
 
 def test_cuda_packetize_round_trip(cuda, rng):

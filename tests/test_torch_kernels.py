@@ -220,6 +220,39 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         == "cpu"
 
 
+def test_ptxas_report_reads_each_entry_function(monkeypatch, tmp_path):
+    """``-Xptxas -v`` lines: each entry function's registers, static shared
+    memory, stack and spills; a device function's properties between two
+    entries are not taken for the entry's."""
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Zk2' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Zk2\n"
+        "    40 bytes stack frame, 48 bytes spill stores, 84 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 40 bytes "
+        "cumulative stack size\n"
+        "ptxas info    : Compiling entry function '_Zk1' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Zdev\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Function properties for _Zk1\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 2048 bytes smem, "
+        "400 bytes cmem[0]\n")
+    parsed = [
+        {"kernel": "_Zk2", "registers": 168, "smem": 0, "stack": 40,
+         "spill_stores": 48, "spill_loads": 84},
+        {"kernel": "_Zk1", "registers": 40, "smem": 2048, "stack": 0,
+         "spill_stores": 0, "spill_loads": 0}]
+    assert _build.parse_ptxas(log) == parsed
+    assert "-Xptxas" in _build.NVCC_FLAGS and "-v" in _build.NVCC_FLAGS
+    # The log kept beside a library is what ptxas_report reads.
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.ptxas_report("mod2_matmul") == []
+    _build.library_path("mod2_matmul").with_suffix(".log").write_text(log)
+    assert _build.ptxas_report("mod2_matmul") == parsed
+
+
 def test_build_paths(monkeypatch, tmp_path):
     path = _build.library_path("gf256_matmul")
     assert path.parent == _build.BUILD_DIR
