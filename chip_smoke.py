@@ -9,18 +9,24 @@ Phases (any failure raises and the script exits non-zero):
    takes to build every CUDA source of ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together), and each kernel's registers,
    shared memory and spills as ``nvcc -Xptxas -v`` reported them (the
-   mod-2 kernel must not spill).
+   two bit-plane kernels, select-and-XOR and mod-2, must not spill).
 2. Each kernel against its plain PyTorch version on the card, byte for
    byte, over a sweep of shapes (ragged widths, odd and large stripe
    counts, zero and one-hot coefficient rows) and the shapes the main path
-   gives it; at the main-path shapes, the kernel's and the plain version's
-   times (CUDA events, median) beside the least time the card could take.
+   gives it; at the main-path shapes, the time of one call of the kernel
+   and of its plain version (CUDA events, median; the kernels line's
+   ``ms`` and ``plain_ms``) and the kernel's device time (calls captured
+   in a CUDA graph over copies of the inputs that pass twice the L2, so
+   no host launch cost and no warm L2; ``device_ms``) beside the least
+   time the card could take.
    2 is the GF(2^8) kernel (gf backend), 2b the two bit-plane kernels
    (crs: select-and-XOR, mxu: mod-2 tensor-core matmul), the mxu kernel
    also against the crs kernel, the mod-2 kernel's edges (K8 and R8 off
    its tiles, packets and out 1 byte off alignment, more work items than
    one wave of its persistent grid, a bitmatrix too deep for shared
-   memory), and the packetize/unpacketize glue.
+   memory), the select-and-XOR kernel's split-K edges (a K8 smaller than
+   its K slices, a bitmatrix with every row zero or three live columns,
+   S=1 at a wide P), and the packetize/unpacketize glue.
 3. The main path at real size: a ``StripeStore`` with the paper's P5
    (cp-azure, k=24, r=2, p=2), 1 MiB blocks and 28 nodes; seeded random
    objects until 64 stripes are sealed (1.5 GiB of user data); then
@@ -94,6 +100,43 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, args, calls: int = 20, replays: int = 5) -> float:
+    """Milliseconds of ``fn(*args)`` on the card without the host's launch
+    cost and without a warm L2: ``calls`` calls captured in one CUDA graph,
+    the graph replayed ``replays`` times between two events, after a
+    warm-up call. The calls rotate over copies of ``args``, as many as it
+    takes for the bytes the other calls read between two reads of one copy
+    to pass twice the card's L2 (the main path reads a new stripe from
+    device memory at each launch), and each call writes an output of its
+    own. A single call timed by :func:`cuda_ms` also counts the host's time
+    to allocate and launch, which hides a short kernel."""
+    per_call = sum(a.numel() * a.element_size() for a in args)
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    n = min(calls, 1 + -(-2 * l2 // per_call))
+    copies = [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    fn(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(*copies[i % n]) for i in range(calls)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del outs, graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def _larger(mem_ms: float, ops_ms: float) -> tuple[float, str]:
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
 
@@ -163,7 +206,7 @@ def main() -> None:
                   f"shared memory, {e['stack']} bytes stack, "
                   f"{e['spill_stores']} bytes spill stores, "
                   f"{e['spill_loads']} bytes spill loads")
-            check(name != "mod2_matmul"
+            check(name not in BIT_FAMILIES
                   or e["spill_stores"] + e["spill_loads"] == 0,
                   f"{name}: {kernel_name(e['kernel'])} spills registers")
     dev = torch.device("cuda", 0)
@@ -230,22 +273,25 @@ def main() -> None:
         data = rand((s, k, B))
         compare(coef, data, (s, m, k, B))
         kms = cuda_ms(torch, lambda: gm.gf256_matmul_batched(coef, data), 10)
+        dms = device_ms(torch, gm.gf256_matmul_batched, (coef, data))
         pms = cuda_ms(torch,
                       lambda: ref.gf256_matmul_batched_ref(coef, data), 3)
         bms, by = bound_ms(s, m, k, B)
-        timings[(s, m, k)] = (kms, pms, bms, by)
+        timings[(s, m, k)] = (kms, pms, bms, by, dms)
         print(f"[kernel] gf256_matmul_batched S={s} m={m} k={k} B={B}: "
-              f"{kms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-              f"({by})")
+              f"{kms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
     # The seal-time flat encode: parity rows (4, 24) over one stripe.
     pcoef = torch.from_numpy(cfg_parity(cfg)).to(dev)
     pdata = rand((cfg.k, B))
     compare(pcoef, pdata[None], (1, 4, 24, B))
     flat_ms = cuda_ms(torch, lambda: gm.gf256_matmul(pcoef, pdata), 10)
+    flat_dev = device_ms(torch, gm.gf256_matmul, (pcoef, pdata))
     flat_plain = cuda_ms(torch, lambda: ref.gf256_matmul_ref(pcoef, pdata), 3)
     flat_bound, flat_by = bound_ms(1, 4, cfg.k, B)
-    print(f"[kernel] gf256_matmul m=4 k=24 B={B}: {flat_ms:.4f} ms, plain "
-          f"{flat_plain:.4f} ms, bound {flat_bound:.4f} ms ({flat_by})")
+    print(f"[kernel] gf256_matmul m=4 k=24 B={B}: {flat_ms:.4f} ms (device "
+          f"{flat_dev:.4f} ms), plain {flat_plain:.4f} ms, bound "
+          f"{flat_bound:.4f} ms ({flat_by})")
     # What one window costs to bring to the card from a pageable host
     # stack, beside the kernel that consumes it.
     big = max(timings, key=lambda t: t[0] * t[2])
@@ -298,7 +344,7 @@ def main() -> None:
               + f"; {json.dumps(report)}")
 
     s, m, k = big
-    kms, pms, bms, by = timings[big]
+    kms, pms, bms, by, dms = timings[big]
     kernels = [
         {"name": "gf256_matmul_batched", "route": "cuda",
          "source": "src/repro_torch/csrc/gf256_matmul.cu",
@@ -306,14 +352,15 @@ def main() -> None:
          "launches": launches["gf256_matmul_batched"],
          "max_abs_err": max_err["gf256_matmul_batched"],
          "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-         "library_ms": None, "shape": {"S": s, "m": m, "k": k, "B": B}},
+         "library_ms": None, "device_ms": dms,
+         "shape": {"S": s, "m": m, "k": k, "B": B}},
         {"name": "gf256_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/gf256_matmul.cu",
          "replaces": "src/repro/kernels/gf256_matmul.py:92",
          "launches": launches["gf256_matmul"],
          "max_abs_err": max_err["gf256_matmul"],
          "ms": flat_ms, "plain_ms": flat_plain, "bound_ms": flat_bound,
-         "bound_by": flat_by, "library_ms": None,
+         "bound_by": flat_by, "library_ms": None, "device_ms": flat_dev,
          "shape": {"S": 1, "m": 4, "k": cfg.k, "B": B}},
     ]
     for row in bit_rows:
@@ -418,6 +465,23 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
                            (7, 24, 2056, 517), (3, 40, 2056, 4096)):
         compare(sweep_bm(r8, k8), u8((s, k8, p)), (s, r8, k8, p))
         sweep += 1
+    # The select-and-XOR kernel's split-K edges: a K8 smaller than its K
+    # slices, a bitmatrix with every row zero (an empty compact list), one
+    # with three live columns (slices left empty), and S=1 at a wide P with
+    # R8=32 (a split-K reduction in every block).
+    for (s, r8, k8, p, kind) in ((1, 32, 3, 4096, "sweep"),
+                                 (7, 8, 3, 517, "sweep"),
+                                 (1, 32, 192, 131072, "zero"),
+                                 (1, 32, 192, 131072, "sparse"),
+                                 (1, 16, 104, 131072 + 16, "zero"),
+                                 (1, 32, 192, 131072 + 5, "sweep")):
+        bm = sweep_bm(r8, k8)
+        if kind != "sweep":
+            bm.zero_()
+        if kind == "sparse":
+            bm[:, torch.from_numpy(rng.choice(k8, 3, replace=False))] = 1
+        compare(bm, u8((s, k8, p)), (kind, s, r8, k8, p))
+        sweep += 1
     # packets and out 1 byte off a 16-byte boundary (contiguous views of
     # buffers sliced at 1), through the C interface, since the wrappers
     # allocate an aligned out.
@@ -446,12 +510,15 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
 
     def timed(fn, plain, bm, pk, kernel, label):
         kms = cuda_ms(torch, lambda: fn(bm, pk), 10)
+        dms = device_ms(torch, fn, (bm, pk))
         pms = cuda_ms(torch, lambda: plain(bm, pk), 3)
         s = 1 if pk.ndim == 2 else pk.shape[0]
         bms, by = bit_bound_ms(kernel, s, bm.cpu().numpy(), pk.shape[-1])
-        print(f"[kernel] {fn.__name__} {label}: {kms:.4f} ms, plain "
+        print(f"[kernel] {fn.__name__} {label}: {kms:.4f} ms (device "
+              f"{dms:.4f} ms, {dms / bms:.2f} times the bound), plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
-        return {"ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        return {"ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "device_ms": dms}
 
     rows, big = {}, max(windows, key=lambda w: w[0] * w[2])
     for (s, m, k) in windows:

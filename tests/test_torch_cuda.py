@@ -28,11 +28,19 @@ GF_SHAPES = [(2, 4, 128), (4, 6, 256), (8, 24, 512), (9, 96, 128),
 # kernel's edges: K8 not a multiple of its 32-deep k step (40, 104), R8 not
 # a multiple of its 16-row groups (24, 40), enough (stripe, 32-byte tile)
 # work items at S=64 to pass one wave of its persistent grid (P=16384),
-# and a bitmatrix too deep for its fragments to stay in shared memory.
+# and a bitmatrix too deep for its fragments to stay in shared memory;
+# then a K8 smaller than the select-and-XOR kernel's K slices.
 BIT_SHAPES = [(8, 16, 64), (16, 104, 40), (32, 192, 33), (24, 40, 7),
               (192, 192, 16), (8, 768, 4096), (16, 96, 4096 + 5),
               (24, 104, 4096), (40, 40, 4096), (40, 104, 300),
-              (16, 192, 16384), (24, 2056, 64)]
+              (16, 192, 16384), (24, 2056, 64), (32, 3, 4096)]
+# The select-and-XOR kernel's split-K edges at S=1, where it splits K8
+# over the most warps: (kind, R8, K8, P) with kind "zero" (every row zero:
+# an empty compact list), "sparse" (three live columns: slices left
+# empty) or "random", and a wide P (a reduction in every block).
+BIT_EDGES = [("zero", 32, 192, 131072), ("sparse", 32, 192, 131072),
+             ("random", 32, 192, 131072), ("sparse", 16, 104, 4096),
+             ("random", 8, 3, 4096 + 5)]
 BIT_WRAPPERS = {
     "bitmatrix_encode": (bme.bitmatrix_encode, bme.bitmatrix_encode_batched,
                          ref.bitmatrix_encode_ref,
@@ -105,6 +113,25 @@ def test_cuda_mod2_kernel_matches_select_and_xor_kernel(cuda, r8, k8, p,
     want = bme.bitmatrix_encode_batched(bm, pk)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,r8,k8,p", BIT_EDGES)
+def test_cuda_bit_plane_kernels_at_split_k_edges(cuda, kind, r8, k8, p, rng):
+    if kind == "random":
+        bm = _u8(rng, (r8, k8), cuda, 2)
+    else:
+        bm = torch.zeros((r8, k8), dtype=torch.uint8, device=cuda)
+        if kind == "sparse":
+            bm[:, torch.from_numpy(rng.choice(k8, 3, replace=False))] = 1
+    pk = _u8(rng, (1, k8, p), cuda)
+    want = ref.bitmatrix_encode_batched_ref(bm, pk)
+    got = bme.bitmatrix_encode_batched(bm, pk)
+    flat = bme.bitmatrix_encode(bm, pk[0])
+    mod2 = bme.mod2_matmul_encode_batched(bm, pk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(flat, want[0])
+    assert torch.equal(mod2, got)
 
 
 @pytest.mark.parametrize("source,plain", [

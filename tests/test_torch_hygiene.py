@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package, and the smoke script
-refuses to run (and prints no result) on a machine without a card."""
+"""The port stands alone: no module of ``src/repro_torch``, no script of
+``tools/`` and no line of ``chip_smoke.py`` imports JAX or the JAX
+package, and the smoke script refuses to run (and prints no result) on a
+machine without a card."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
