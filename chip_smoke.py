@@ -8,8 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Device and build: the card's name and power limit, the seconds it
    takes to build every CUDA source of ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, started together), and each kernel's registers,
-   shared memory and spills as ``nvcc -Xptxas -v`` reported them (the
-   two bit-plane kernels, select-and-XOR and mod-2, must not spill).
+   shared memory and spills as ``nvcc -Xptxas -v`` reported them (no
+   kernel may spill).
 2. Each kernel against its plain PyTorch version on the card, byte for
    byte, over a sweep of shapes (ragged widths, odd and large stripe
    counts, zero and one-hot coefficient rows) and the shapes the main path
@@ -19,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
    in a CUDA graph over copies of the inputs that pass twice the L2, so
    no host launch cost and no warm L2; ``device_ms``) beside the least
    time the card could take.
-   2 is the GF(2^8) kernel (gf backend), 2b the two bit-plane kernels
+   2 is the GF(2^8) kernel (gf backend), with its edges (k past its
+   table chunk, m off and past its tiles, S=1 at a wide B, coefficient
+   blocks of one kind, data and out 1 byte off alignment, more stripes
+   and m tiles than a grid's rows), 2b the two bit-plane kernels
    (crs: select-and-XOR, mxu: mod-2 tensor-core matmul), the mxu kernel
    also against the crs kernel, the mod-2 kernel's edges (K8 and R8 off
    its tiles, packets and out 1 byte off alignment, more work items than
@@ -182,7 +185,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a card")
 
     from repro_torch.core.gf import gf_matmul
-    from repro_torch.ftx import StoreConfig, launch_step
+    from repro_torch.ftx import StoreConfig
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import bitmatrix_encode as bme
     from repro_torch.kernels import gf256_matmul as gm
@@ -206,8 +209,7 @@ def main() -> None:
                   f"shared memory, {e['stack']} bytes stack, "
                   f"{e['spill_stores']} bytes spill stores, "
                   f"{e['spill_loads']} bytes spill loads")
-            check(name not in BIT_FAMILIES
-                  or e["spill_stores"] + e["spill_loads"] == 0,
+            check(e["spill_stores"] + e["spill_loads"] == 0,
                   f"{name}: {kernel_name(e['kernel'])} spills registers")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -247,6 +249,40 @@ def main() -> None:
                     coef[1, k // 2] = 1          # a one-hot row
                 compare(coef, rand((s, k, bb)), (s, m, k, bb))
                 sweep += 1
+    # The GF(2^8) kernel's edges: k past its 64-row table chunk; m off its
+    # 1/2/4/8-row tiles and past 8 (m = k = 24: a full decode); S=1 at the
+    # seal's B = 1 MiB (one wave of warps), even and ragged; coefficient
+    # blocks of one kind (all 0, all 1, one-hot rows, all 0x8E, the largest
+    # log); more (stripe, m tile) pairs than a grid's 65535 rows.
+    for (s, m, k, bb, kind) in GF_EDGES:
+        coef = gf_edge_coef(rng, m, k, kind).to(dev)
+        compare(coef, rand((s, k, bb)), (kind, s, m, k, bb))
+        sweep += 1
+    # data and out 1 byte off a 16-byte boundary (contiguous views of
+    # buffers sliced at 1), through the C interface, since the wrapper
+    # allocates an aligned out.
+    for (s, m, k, bb) in ((7, 4, 24, 4096), (3, 9, 65, 1000),
+                          (1, 4, 24, 1 << 20)):
+        coef = rand((m, k))
+        data = rand((s * k * bb + 1,))[1:].view(s, k, bb)
+        buf = torch.zeros(s * m * bb + 2, dtype=torch.uint8, device=dev)
+        out = buf[1:-1].view(s, m, bb)
+        check(data.data_ptr() % 16 == 1 and out.data_ptr() % 16 == 1,
+              "the views are not 1 byte off alignment")
+        err = gm._launcher()(coef.data_ptr(), data.data_ptr(), out.data_ptr(),
+                             gm._tables(dev).data_ptr(), m, k, bb, s,
+                             torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"gf256_matmul launch failed: CUDA error {err}")
+        want = ref.gf256_matmul_batched_ref(coef, data)
+        torch.cuda.synchronize()
+        diff = int((out.int() - want.int()).abs().max())
+        max_err["gf256_matmul_batched"] = max(
+            max_err["gf256_matmul_batched"], diff)
+        check(diff == 0, f"batched kernel differs off alignment at "
+              f"{(s, m, k, bb)}")
+        check(int(buf[0]) == 0 and int(buf[-1]) == 0,
+              f"gf256_matmul wrote outside out at {(s, m, k, bb)}")
+        sweep += 1
     # The flat kernel against the numpy GF algebra, independently of torch.
     c_np = rng.integers(0, 256, (4, 24), dtype=np.uint8)
     d_np = rng.integers(0, 256, (24, 4096), dtype=np.uint8)
@@ -259,16 +295,9 @@ def main() -> None:
     check(cfg.backend == "gf", f"store default backend on CUDA is "
           f"{cfg.backend!r}, expected 'gf'")
     B = cfg.block_size
-    shapes = {(min(launch_step(cfg, k, cfg.pipeline_window), 16), m, k)
-              for m in (1, 2, 4) for k in (12, 24)}
-    # Windows the repair pipeline cuts for the run below: 4 groups of 16
-    # stripes per failure, plans (m, reads) as the planner compiles them.
-    for m, k in ((1, 12), (1, 2), (2, 24), (2, 13)):
-        step = launch_step(cfg, k, cfg.pipeline_window)
-        for s in {min(step, 16), 16 % step or step}:
-            shapes.add((s, m, k))
+    shapes = gf_windows(cfg)
     timings = {}
-    for (s, m, k) in sorted(shapes):
+    for (s, m, k) in shapes:
         coef = rand((m, k))
         data = rand((s, k, B))
         compare(coef, data, (s, m, k, B))
@@ -305,8 +334,7 @@ def main() -> None:
           f"computes a GF(2^8) matmul, so library_ms is null")
 
     # ------------------------------- 2b. bit-plane kernels against plain
-    windows = sorted({(s, m, k) for (s, m, k) in shapes
-                      if (m, k) in ((1, 12), (1, 2), (2, 24), (2, 13))})
+    windows = [(s, m, k) for (s, m, k) in shapes if (m, k) in REPAIR_PLANS]
     bit_rows = bit_kernel_phase(np, torch, rng, dev, windows,
                                 cfg_parity(cfg), B // 8)
 
@@ -384,6 +412,39 @@ def kernel_name(mangled: str) -> str:
     name = name.replace("(anonymous namespace)::", "")
     m = re.match(r"(?:void )?(?:\w+::)*(\w+(?:<[^>]*>)?)\(", name)
     return m.group(1) if m else name
+
+
+# (S, m, k, B, coefficient kind) of the GF(2^8) kernel's edges; the kinds
+# are those of gf_edge_coef.
+GF_EDGES = ((3, 4, 65, 4096, "sweep"), (2, 2, 257, 1000, "sweep"),
+            (1, 9, 300, 4096 + 13, "sweep"), (7, 3, 24, 4096, "sweep"),
+            (7, 9, 24, 4096, "sweep"), (3, 16, 24, 4096, "sweep"),
+            (3, 24, 24, 4096 + 13, "sweep"), (1, 4, 24, 1 << 20, "sweep"),
+            (1, 4, 24, (1 << 20) + 13, "sweep"), (1, 4, 24, 1 << 20, "zero"),
+            (1, 4, 24, 1 << 20, "one"), (1, 4, 24, 1 << 20, "onehot"),
+            (1, 4, 24, 1 << 20, "max"), (66000, 1, 3, 32, "sweep"),
+            (22000, 24, 2, 16, "sweep"))
+
+
+def gf_edge_coef(rng, m: int, k: int, kind: str):
+    """A (m, k) coefficient block on the CPU: "sweep" is random with row 0
+    zero and row 1 one-hot, "zero" all 0, "one" all 1, "onehot" a single 1
+    in each row, "max" all 0x8E (log 254, the largest)."""
+    import numpy as np
+    import torch
+
+    coef = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    if kind == "sweep":
+        coef[0] = 0
+        if m > 1:
+            coef[1] = 0
+            coef[1, k // 2] = 1
+    elif kind == "onehot":
+        coef[:] = 0
+        coef[np.arange(m), np.arange(m) % k] = 1
+    else:
+        coef[:] = {"zero": 0, "one": 1, "max": 0x8E}[kind]
+    return torch.from_numpy(coef)
 
 
 # The bit-plane kernels: family -> (stripe-batched wrapper, flat wrapper,
@@ -569,6 +630,27 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
                         "max_abs_err": max_err[name], **rows[name],
                         "library_ms": None})
     return out
+
+
+# (m, reads) of the plans the planner compiles for the main path's repairs
+# of one and two failed nodes.
+REPAIR_PLANS = ((1, 12), (1, 2), (2, 24), (2, 13))
+
+
+def gf_windows(cfg) -> list[tuple[int, int, int]]:
+    """(S, m, k) of the GF(2^8) kernel's launches at the main path's
+    widths: the repair pipeline's windows (4 groups of 16 stripes per
+    failure, cut by ``launch_step``) for the plans of ``REPAIR_PLANS``, and
+    S=16 or the step, m = 1, 2, 4 at k = 12 and 24 (decodes)."""
+    from repro_torch.ftx import launch_step
+
+    shapes = {(min(launch_step(cfg, k, cfg.pipeline_window), 16), m, k)
+              for m in (1, 2, 4) for k in (12, 24)}
+    for m, k in REPAIR_PLANS:
+        step = launch_step(cfg, k, cfg.pipeline_window)
+        for s in {min(step, 16), 16 % step or step}:
+            shapes.add((s, m, k))
+    return sorted(shapes)
 
 
 def cfg_parity(cfg):

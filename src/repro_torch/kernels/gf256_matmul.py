@@ -1,9 +1,12 @@
 """Hand-written CUDA GF(2^8) matrix product: flat and stripe-batched.
 
 ``out[s, i, :] = XOR_j gfmul(coef[i, j], data[s, j, :])`` with polynomial
-0x11D. One kernel (``csrc/gf256_matmul.cu``, log/exp tables in shared
-memory, 16 bytes per thread) serves both wrappers; the flat one launches
-it with S = 1. It replaces the TPU kernels
+0x11D. One kernel (``csrc/gf256_matmul.cu``) serves both wrappers; the
+flat one launches it with S = 1. Each block builds, in its prologue and
+from the exp/log table argument, three 8-entry product tables per
+coefficient (data bits 0-2, 3-5 and 6-7); a lane holds them in registers
+and looks up 4 bytes of a word with one byte permute, for 16 bytes of
+each row and all output rows of its tile. It replaces the TPU kernels
 ``src/repro/kernels/gf256_matmul.py::gf256_matmul_batched`` and
 ``::gf256_matmul``.
 

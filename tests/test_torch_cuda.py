@@ -23,6 +23,15 @@ pytestmark = pytest.mark.cuda
 # tests/test_kernels.py's (m, k, B) sweep.
 GF_SHAPES = [(2, 4, 128), (4, 6, 256), (8, 24, 512), (9, 96, 128),
              (3, 17, 384)]
+# The GF(2^8) kernel's edges, (S, m, k, B): k past its 64-row table chunk;
+# m off its 1/2/4/8-row tiles and past 8 (m = k = 24: a full decode); S=1
+# at the seal's B = 1 MiB (one wave of warps), even and ragged; more
+# (stripe, m tile) pairs than a grid's 65535 rows at a small B.
+GF_EDGES = [(3, 4, 65, 4096), (2, 2, 257, 1000), (1, 9, 300, 4096 + 13),
+            (7, 3, 24, 4096), (7, 9, 24, 4096), (3, 16, 24, 4096),
+            (3, 24, 24, 4096 + 13), (1, 4, 24, 1 << 20),
+            (1, 4, 24, (1 << 20) + 13), (66000, 1, 3, 32),
+            (22000, 24, 2, 16)]
 # (R8, K8, P): repair-window, seal and decode widths of the P5 store at a
 # small P, ragged ones, and a deep bitmatrix at a wider P; then the mod-2
 # kernel's edges: K8 not a multiple of its 32-deep k step (40, 104), R8 not
@@ -80,6 +89,67 @@ def test_cuda_gf_kernel_matches_plain_version(cuda, m, k, b, s, ragged,
     flat = gm.gf256_matmul(c, d[0])
     torch.cuda.synchronize()
     assert torch.equal(flat, want[0])
+
+
+@pytest.mark.parametrize("s,m,k,b", GF_EDGES)
+def test_cuda_gf_kernel_at_its_edges(cuda, s, m, k, b, rng):
+    c = _u8(rng, (m, k), cuda)
+    c[0] = 0                                     # an all-zero row
+    if m > 1:
+        c[1] = 0
+        c[1, k // 2] = 1                         # a one-hot row
+    d = _u8(rng, (s, k, b), cuda)
+    got = gm.gf256_matmul_batched(c, d)
+    want = ref.gf256_matmul_batched_ref(c, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if s == 1:
+        flat = gm.gf256_matmul(c, d[0])
+        torch.cuda.synchronize()
+        assert torch.equal(flat, want[0])
+
+
+@pytest.mark.parametrize("kind", ["zero", "one", "onehot", "max"])
+@pytest.mark.parametrize("s,b", [(1, 1 << 20), (16, 4096 + 13)])
+def test_cuda_gf_kernel_with_coefficients_of_one_kind(cuda, kind, s, b, rng):
+    """Every coefficient 0, every one 1, one 1 in each row, or every one
+    0x8E, whose log (254) is the largest."""
+    m, k = 4, 24
+    c = torch.zeros((m, k), dtype=torch.uint8)
+    if kind == "onehot":
+        c[torch.arange(m), torch.arange(m)] = 1
+    else:
+        c[:] = {"zero": 0, "one": 1, "max": 0x8E}[kind]
+    c = c.to(cuda)
+    d = _u8(rng, (s, k, b), cuda)
+    got = gm.gf256_matmul_batched(c, d)
+    want = ref.gf256_matmul_batched_ref(c, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if kind == "one":                            # XOR of the k rows
+        x = d[:, 0].clone()
+        for j in range(1, k):
+            x ^= d[:, j]
+        assert torch.equal(got[:, 0], x)
+
+
+@pytest.mark.parametrize("s,m,k,b", [(7, 4, 24, 4096), (3, 9, 65, 1000),
+                                     (1, 4, 24, 1 << 20)])
+def test_cuda_gf_kernel_takes_pointers_off_alignment(cuda, s, m, k, b, rng):
+    """data and out 1 byte off a 16-byte boundary, launched through the C
+    interface since the wrappers allocate an aligned out."""
+    c = _u8(rng, (m, k), cuda)
+    d = _u8(rng, (s * k * b + 1,), cuda)[1:].view(s, k, b)
+    out_buf = torch.zeros(s * m * b + 2, dtype=torch.uint8, device=cuda)
+    out = out_buf[1:-1].view(s, m, b)
+    assert d.data_ptr() % 16 == 1 and out.data_ptr() % 16 == 1
+    err = gm._launcher()(c.data_ptr(), d.data_ptr(), out.data_ptr(),
+                         gm._tables(cuda).data_ptr(), m, k, b, s,
+                         torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, ref.gf256_matmul_batched_ref(c, d))
+    assert int(out_buf[0]) == 0 and int(out_buf[-1]) == 0
 
 
 @pytest.mark.parametrize("name", sorted(BIT_WRAPPERS))

@@ -89,6 +89,93 @@ def test_launch_tables_reproduce_the_field():
     assert (prod == GF_MUL_TABLE).all()
 
 
+# A numpy model of the kernel's multiply (csrc/gf256_matmul.cu): split
+# tables built as its prologue builds them, looked up by PRMT.
+def _prmt(lo, hi, sel):
+    """PTX ``prmt.b32`` in its default mode, elementwise: byte n of the
+    result is byte (sel >> 4n) & 7 of {hi, lo}, or that byte's sign
+    replicated where bit 3 of the nibble is set."""
+    lo, hi, sel = (np.asarray(x, np.uint64) for x in (lo, hi, sel))
+    both = (hi << np.uint64(32)) | lo
+    out = np.zeros(np.broadcast(lo, hi, sel).shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (both >> (np.uint64(8) * (nib & np.uint64(7)))) & np.uint64(255)
+        byte = np.where(nib & np.uint64(8),
+                        np.where(byte & np.uint64(128), 255, 0), byte)
+        out |= byte.astype(np.uint64) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _split_tables(coefs):
+    """(c, field, half) words of the kernel's tables: byte b of half h of
+    field f is exp[log c + log((4h + b) << 3f & 0xFF)] over launch_tables()'s
+    exp/log layout (log 0 = 512, into the zero tail)."""
+    tab = gm.launch_tables()
+    exp = tab[:1040].astype(np.uint32)
+    log = tab[1040:].view("<u2").astype(np.int64)
+    v = np.arange(8)
+    words = np.zeros((len(coefs), 3, 2), np.uint32)
+    for f in range(3):
+        x = (v << (3 * f)) & 0xFF
+        prod = exp[log[coefs][:, None] + log[x][None, :]]    # (c, 8)
+        for b in range(4):
+            words[:, f, :] |= prod[:, b::4] << np.uint32(8 * b)
+    return words
+
+
+def _selectors(words):
+    """PRMT selectors of each field of each word: fields of bytes 0, 2, 1,
+    3 in nibbles 0..3 (the kernel's ``selectors`` of word >> 3f)."""
+    words = np.asarray(words, np.uint32)
+    fields = [(words >> np.uint32(3 * f)) & np.uint32(0x07070707)
+              for f in range(3)]
+    return [(x + (x >> np.uint32(12))).astype(np.uint32) for x in fields]
+
+
+def _kernel_products(coefs, words):
+    """gfmul(c, word) bytewise for each coefficient and word, as packed
+    words: three PRMTs XORed, then put back in byte order."""
+    t = _split_tables(coefs)[:, None]                      # (c, 1, 3, 2)
+    acc = np.zeros((len(coefs), len(words)), np.uint32)
+    for f, sel in enumerate(_selectors(words)):
+        acc ^= _prmt(t[..., f, 0], t[..., f, 1], sel[None, :])
+    return _prmt(acc, 0, 0x3120)
+
+
+def _bytes_of(words):
+    return np.asarray(words, "<u4").view(np.uint8).reshape(*np.shape(words),
+                                                           4)
+
+
+def test_split_table_products_of_every_pair():
+    """Every coefficient against every byte, in every byte position of a
+    word: the kernel's table scheme gives the field's product."""
+    coefs = np.arange(256)
+    for shift in range(4):
+        data = np.roll(np.arange(256, dtype=np.uint8), shift)
+        words = data.view("<u4")
+        got = _bytes_of(_kernel_products(coefs, words)).reshape(256, 256)
+        want = gf_matmul(coefs.astype(np.uint8)[:, None], data[None, :])
+        assert (got == want).all()
+
+
+def test_split_table_selectors_and_tables(rng):
+    """Random words: no selector nibble sets PRMT's sign bit, the 2-bit
+    field's table repeats its four entries (so the bit it takes from the
+    next byte picks a repeat), and the products are the field's."""
+    words = rng.integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.uint32)
+    for sel in _selectors(words):
+        assert not (sel & 0x8888).any()          # PRMT reads the low half
+    coefs = rng.integers(0, 256, 64)
+    tabs = _split_tables(coefs)
+    assert (tabs[:, 2, 0] == tabs[:, 2, 1]).all()
+    assert (tabs[coefs == 0] == 0).all()
+    got = _bytes_of(_kernel_products(coefs, words))        # (c, w, 4)
+    want = GF_MUL_TABLE[coefs[:, None, None], _bytes_of(words)[None]]
+    assert (got == want).all()
+
+
 # ----------------------------------------------------------------- wrappers
 @pytest.mark.parametrize("s,m,k,b", [(1, 1, 1, 1), (7, 3, 17, 385),
                                      (2, 9, 96, 128), (4, 0, 5, 64),
