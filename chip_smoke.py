@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
    ``ms`` and ``plain_ms``) and the kernel's device time (calls captured
    in a CUDA graph over copies of the inputs that pass twice the L2, so
    no host launch cost and no warm L2; ``device_ms``) beside the least
-   time the card could take.
+   time the card could take; and the same at the shapes the serving and
+   checkpoint paths of phases 4 and 5 give each batched kernel.
    2 is the GF(2^8) kernel (gf backend), with its edges (k past its
    table chunk, m off and past its tiles, S=1 at a wide B, coefficient
    blocks of one kind, data and out 1 byte off alignment, more stripes
@@ -42,8 +43,26 @@ Phases (any failure raises and the script exits non-zero):
    this phase. 3 runs the gf backend; 3b the same path once with crs and
    once with mxu, each in a fresh store whose sealed block files must hash
    as the gf store's did.
+4. Serving, on the gf store of phase 3: with node 3 failed,
+   ``BlockServer(store, clients=8).run(zipf_requests(store, 2000,
+   seed=0))``. Every response must hash as the block read before the
+   failure; prints the degraded-read report (p50/p99, coalescing ratio,
+   decode launches).
+5. Checkpointing a training state that lives on the card: internvl2-1b's
+   Qwen2 backbone at its published widths (all 24 layers, about 494 M
+   parameters in bf16 and their AdamW moments in fp32, 4.9 GB) under the
+   default ``CheckpointConfig`` on gf: ``save_async`` (a tensor
+   overwritten after it returns), two hosts' block files emptied and the
+   hosts failed, a parallel degraded ``restore`` held byte for byte
+   against the state as saved, and ``repair`` (the emptied files must hash
+   as they did). crs and mxu then save the state cut to 2 layers, and
+   their block files must hash as a gf save of it.
 
-The line before the last is a JSON object with one entry per kernel; the
+Each path (3, 4, 5) runs with the kernel wrappers' launch counts set to 0
+just before it and read just after, and fails if a kernel it runs was
+never launched. The line before the last is a JSON object with one entry
+per kernel (``launches`` is phase 3's count, ``launches_by_path`` each
+path's); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
 outside a checkout, it fails and prints no result.
 """
@@ -329,8 +348,23 @@ def main() -> None:
     print(f"[copy] host->device of the S={big[0]} k={big[2]} window "
           f"({host.nbytes} bytes, pageable): {h2d:.4f} ms against "
           f"{timings[big][0]:.4f} ms in the kernel")
-    print(f"[kernel] {sweep} sweep shapes and {len(shapes) + 1} main-path "
-          f"shapes byte-equal to the plain version; no single PyTorch call "
+    # The shapes the serving and checkpoint paths (phases 4 and 5) give
+    # the batched kernel, each beside its plain version and its bound.
+    for (path, s, m, k, bb) in GF_PATH_SHAPES:
+        coef = rand((m, k))
+        data = rand((s, k, bb))
+        compare(coef, data, (path, s, m, k, bb))
+        kms = cuda_ms(torch, lambda: gm.gf256_matmul_batched(coef, data), 10)
+        dms = device_ms(torch, gm.gf256_matmul_batched, (coef, data))
+        pms = cuda_ms(torch,
+                      lambda: ref.gf256_matmul_batched_ref(coef, data), 3)
+        bms, by = bound_ms(s, m, k, bb)
+        print(f"[kernel] gf256_matmul_batched ({path}) S={s} m={m} k={k} "
+              f"B={bb}: {kms:.4f} ms (device {dms:.4f} ms), plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
+    print(f"[kernel] {sweep} sweep shapes, {len(shapes) + 1} main-path "
+          f"shapes and {len(GF_PATH_SHAPES)} serving and checkpoint shapes "
+          f"byte-equal to the plain version; no single PyTorch call "
           f"computes a GF(2^8) matmul, so library_ms is null")
 
     # ------------------------------- 2b. bit-plane kernels against plain
@@ -347,6 +381,7 @@ def main() -> None:
                 "mxu": (bme.mod2_matmul_encode_batched,
                         bme.mod2_matmul_encode)}
     launches = {}
+    by_path = {fn.__name__: {} for fns in wrappers.values() for fn in fns}
     gf_hashes = None
     (ROOT / "_smoke").mkdir(exist_ok=True)
     for backend in ("gf", "crs", "mxu"):
@@ -355,11 +390,22 @@ def main() -> None:
         try:
             for fn in wrappers[backend]:
                 fn.launches = 0
-            report, hashes = drive_main_path(
+            report, hashes, store = drive_main_path(
                 np, torch, dataclasses.replace(cfg, backend=backend),
                 workdir, dev, wrappers[backend][0], gf_hashes)
             for fn in wrappers[backend]:
                 launches[fn.__name__] = fn.launches
+                by_path[fn.__name__]["main"] = fn.launches
+            if backend == "gf":
+                # ------------------------- 4. serving from the gf store
+                for fn in wrappers["gf"]:
+                    fn.launches = 0
+                serve_phase(np, torch, store, wrappers["gf"][0])
+                for fn in wrappers["gf"]:
+                    by_path[fn.__name__]["serve"] = fn.launches
+                check(by_path["gf256_matmul_batched"]["serve"] > 0,
+                      "gf256_matmul_batched was never launched on the "
+                      "serving path")
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         gf_hashes = gf_hashes or hashes
@@ -370,6 +416,14 @@ def main() -> None:
               + json.dumps({fn.__name__: launches[fn.__name__]
                             for fn in wrappers[backend]})
               + f"; {json.dumps(report)}")
+
+    # ------------------------------------------------- 5. checkpointing
+    workdir = Path(tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "_smoke"))
+    try:
+        checkpoint_phase(np, torch, dev, workdir, wrappers, by_path,
+                         QWEN2_LAYERS)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     s, m, k = big
     kms, pms, bms, by, dms = timings[big]
@@ -394,6 +448,8 @@ def main() -> None:
     for row in bit_rows:
         row["launches"] = launches[row["name"]]
         kernels.append(row)
+    for row in kernels:
+        row["launches_by_path"] = by_path[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -593,6 +649,15 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
             if (s, m, k) == big:
                 rows[batched.__name__] = dict(
                     t, shape={"S": s, "R8": 8 * m, "K8": 8 * k, "P": p_main})
+    # The checkpoint path's encode windows (phase 5's crs and mxu saves).
+    for (path, s, m, k, p) in BIT_PATH_SHAPES:
+        bm = torch.from_numpy(matrix_to_bitmatrix(
+            rng.integers(0, 256, (m, k), dtype=np.uint8))).to(dev)
+        pk = u8((s, 8 * k, p))
+        label = f"({path}) S={s} R8={8 * m} K8={8 * k} P={p}"
+        compare(bm, pk, label)
+        for fam, (batched, _, plain_b, _) in fams.items():
+            timed(batched, plain_b, bm, pk, fam, label)
     # The seal-time flat encode: the parity rows' bitmatrix over one stripe.
     bm = torch.from_numpy(matrix_to_bitmatrix(parity)).to(dev)
     r8, k8 = bm.shape
@@ -616,8 +681,9 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
           f"{rows['bitmatrix_encode_batched']['ms']:.4f} ms (crs) and "
           f"{rows['mod2_matmul_encode_batched']['ms']:.4f} ms (mxu) in the "
           f"kernel")
-    print(f"[kernel] bit-plane: {sweep} sweep shapes and {len(windows) + 1} "
-          f"main-path shapes byte-equal to the plain versions, the mod-2 "
+    print(f"[kernel] bit-plane: {sweep} sweep shapes, {len(windows) + 1} "
+          f"main-path shapes and {len(BIT_PATH_SHAPES)} checkpoint shapes "
+          f"byte-equal to the plain versions, the mod-2 "
           f"kernel equal to the select-and-XOR kernel at each; no single "
           f"PyTorch call computes a GF(2) bit-plane product with repack, so "
           f"library_ms is null")
@@ -635,6 +701,19 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
 # (m, reads) of the plans the planner compiles for the main path's repairs
 # of one and two failed nodes.
 REPAIR_PLANS = ((1, 12), (1, 2), (2, 24), (2, 13))
+# (path, S, m, k, B) of the launches phases 4 and 5 give the GF(2^8)
+# kernel, as the planner cuts them (the S=4 and S=5 group tails aside):
+# a single lost P5 block decoded from its 12-block local group at 1 MiB;
+# the checkpoint store's (k=8, 256 KiB) encode windows of 32 stripes and
+# the tail of 2355 stripes, and its decodes with hosts 1 and 2 lost, on
+# restore (one or two targets) and repair.
+GF_PATH_SHAPES = (("serve", 1, 1, 12, 1 << 20), ("save", 32, 4, 8, 1 << 18),
+                  ("save", 19, 4, 8, 1 << 18), ("restore", 32, 1, 4, 1 << 18),
+                  ("restore", 32, 2, 8, 1 << 18),
+                  ("repair", 32, 2, 5, 1 << 18))
+# (path, S, m, k, P) of phase 5's crs and mxu encode windows: 791 stripes of
+# the 2-layer state, 32 a window, P = 256 KiB / 8.
+BIT_PATH_SHAPES = (("save", 32, 4, 8, 1 << 15), ("save", 23, 4, 8, 1 << 15))
 
 
 def gf_windows(cfg) -> list[tuple[int, int, int]]:
@@ -660,12 +739,12 @@ def cfg_parity(cfg):
 
 
 def drive_main_path(np, torch, cfg, workdir: Path, device, batched,
-                    want_hashes=None) -> tuple[dict, dict]:
+                    want_hashes=None) -> tuple[dict, dict, object]:
     """Seal 64 stripes, repair one and two failed nodes, serve degraded,
     through ``cfg.backend``, whose stripe-batched kernel wrapper is
     ``batched``. The sealed block files must hash as ``want_hashes`` (by
-    path under the store's root) when it is given. Returns the report and
-    the sealed files' hashes."""
+    path under the store's root) when it is given. Returns the report, the
+    sealed files' hashes and the store, with every node up again."""
     from repro_torch.ftx import StripeStore, repair_failed_nodes
     from repro_torch.kernels import ref
 
@@ -786,7 +865,7 @@ def drive_main_path(np, torch, cfg, workdir: Path, device, batched,
           f"{read_s:.4f} s and {served} degraded gets in {get_s:.4f} s: "
           f"byte-equal")
     out["seal_seconds"] = seal_s
-    return out, by_path
+    return out, by_path, store
 
 
 # Substrings of the port's CUDA kernels' names, as the profiler sees them.
@@ -841,6 +920,298 @@ def profile_repair(torch, run, backend: str) -> dict:
     print(f"[profile] {backend}: host self ms by operator, top 6: "
           + "; ".join(f"{key} {us / 1e3} ({n} calls)" for us, n, key in host))
     return result
+
+
+# Phase 4's load: Zipfian reads of the gf store's data blocks by this many
+# front-end clients, with this node failed.
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_NODE = 2000, 8, 3
+
+
+def serve_phase(np, torch, store, batched) -> dict:
+    """Phase 4: a Zipfian multi-client block load through ``BlockServer``
+    with node 3 failed. Every response must hash as the block read before
+    the failure; the lost blocks' reads reconstruct through ``batched``
+    (each decode launch is one call of it)."""
+    from repro_torch.ftx import read_report
+    from repro_torch.serve import BlockServer, zipf_requests
+
+    requests = zipf_requests(store, SERVE_REQUESTS, seed=0)
+    healthy = {key: hashlib.sha256(store.read(*key).tobytes()).hexdigest()
+               for key in sorted(set(requests))}
+    read_report(store, reset=True)
+    store.fail_node(SERVE_NODE)
+    lost = sum(store.stripes[sid].node_of_block[b] == SERVE_NODE
+               for sid, b in requests)
+    server = BlockServer(store, clients=SERVE_CLIENTS)
+    before = batched.launches
+    t0 = time.perf_counter()
+    responses = server.run(requests)
+    wall = time.perf_counter() - t0
+    grew = batched.launches - before
+    rep = read_report(store)
+    store.revive_node(SERVE_NODE)
+    bad = [key for key, data in zip(requests, responses)
+           if hashlib.sha256(data.tobytes()).hexdigest() != healthy[key]]
+    check(not bad, f"serving: {len(bad)} responses differ from the healthy "
+          f"blocks, first {bad[:3]}")
+    check(rep.degraded_reads == lost > 0 and rep.decode_launches > 0,
+          f"serving: {rep.degraded_reads} degraded reads for {lost} requests "
+          f"on node {SERVE_NODE}, {rep.decode_launches} decode launches")
+    check(store.device.type != "cuda" or grew >= rep.decode_launches,
+          f"serving: the kernel launched {grew} times for "
+          f"{rep.decode_launches} decode launches")
+    front = server.latency.snapshot()
+    out = {"requests": len(requests), "clients": SERVE_CLIENTS,
+           "distinct_blocks": len(healthy), "wall_seconds": wall,
+           "direct_reads": rep.direct_reads,
+           "degraded_reads": rep.degraded_reads,
+           "coalesced_reads": rep.coalesced_reads,
+           "decode_launches": rep.decode_launches,
+           "kernel_launches": grew, "cache_hits": rep.cache_hits,
+           "coalescing_ratio": rep.coalescing_ratio,
+           "cache_hit_rate": rep.cache_hit_rate,
+           "local_decode_fraction": rep.local_decode_fraction,
+           "store_p50_ms": rep.p50_ms, "store_p99_ms": rep.p99_ms,
+           "front_p50_ms": front["p50_ms"], "front_p99_ms": front["p99_ms"],
+           "served_bytes": rep.served_bytes}
+    print(f"[serve] BlockServer(clients={SERVE_CLIENTS}).run(zipf_requests("
+          f"store, {SERVE_REQUESTS}, seed=0)) with node {SERVE_NODE} failed: "
+          f"{len(requests)} responses hash as the healthy blocks; "
+          + json.dumps(out))
+    return out
+
+
+# internvl2-1b's Qwen2 language backbone at its published widths (24
+# layers, d_model 896, 14 query heads and 2 key/value heads of 64, SwiGLU
+# d_ff 4864, vocabulary 151655, biases on q/k/v, embedding tied to the
+# output head): about 494 M parameters.
+QWEN2 = {"d_model": 896, "heads": 14, "kv_heads": 2, "d_ff": 4864,
+         "vocab": 151655}
+QWEN2_LAYERS = 24
+# The depth crs and mxu save, each beside a gf save of the same state.
+BIT_LAYERS = 2
+CKPT_HOSTS = [1, 2]                     # hosts lost before the restore
+CKPT_STEP = 1000
+
+
+def qwen2_params(torch, dev, widths: dict, layers: int, gen):
+    """Random bf16 parameters of a Qwen2 decoder (Hugging Face names, in
+    module order) on ``dev``."""
+    from collections import OrderedDict
+
+    d, f = widths["d_model"], widths["d_ff"]
+    kv = widths["kv_heads"] * d // widths["heads"]
+    shapes = [("model.embed_tokens.weight", (widths["vocab"], d))]
+    for i in range(layers):
+        pre = f"model.layers.{i}."
+        shapes += [(pre + "self_attn.q_proj.weight", (d, d)),
+                   (pre + "self_attn.q_proj.bias", (d,)),
+                   (pre + "self_attn.k_proj.weight", (kv, d)),
+                   (pre + "self_attn.k_proj.bias", (kv,)),
+                   (pre + "self_attn.v_proj.weight", (kv, d)),
+                   (pre + "self_attn.v_proj.bias", (kv,)),
+                   (pre + "self_attn.o_proj.weight", (d, d)),
+                   (pre + "mlp.gate_proj.weight", (f, d)),
+                   (pre + "mlp.up_proj.weight", (f, d)),
+                   (pre + "mlp.down_proj.weight", (d, f)),
+                   (pre + "input_layernorm.weight", (d,)),
+                   (pre + "post_attention_layernorm.weight", (d,))]
+    shapes.append(("model.norm.weight", (d,)))
+    return OrderedDict(
+        (name, (0.02 * torch.randn(shape, generator=gen, device=dev)
+                ).to(torch.bfloat16)) for name, shape in shapes)
+
+
+def train_state(np, torch, dev, widths: dict, layers: int) -> dict:
+    """Parameters (bf16) and AdamW moments (fp32) of the backbone, made
+    on ``dev`` from the seed, with the optimizer's step count carried in
+    from numpy."""
+    from collections import OrderedDict
+
+    from repro_torch.convert import state_from_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = qwen2_params(torch, dev, widths, layers, gen)
+    opt = state_from_reference({"step": np.int32(CKPT_STEP)}, device=dev)
+    opt["m"] = OrderedDict(
+        (k, 1e-3 * torch.randn(v.shape, generator=gen, device=dev))
+        for k, v in params.items())
+    opt["v"] = OrderedDict(
+        (k, 1e-6 * torch.rand(v.shape, generator=gen, device=dev))
+        for k, v in params.items())
+    return {"params": params, "opt_state": opt}
+
+
+def leaf_pairs(got, want, path=""):
+    """(path, got leaf, want leaf) for every leaf of two nests of dicts."""
+    if isinstance(want, dict):
+        keys = sorted(want) if type(want) is dict else list(want)
+        check(isinstance(got, dict) and list(got) == keys,
+              f"restored nesting differs at {path or 'the root'}")
+        for key in want:
+            yield from leaf_pairs(got[key], want[key], f"{path}/{key}")
+    else:
+        yield path, got, want
+
+
+def same_bytes(torch, got, want) -> bool:
+    """``got`` (a restored CPU tensor) holds ``want``'s dtype, shape and
+    bytes."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    return torch.equal(got.to(want.device).reshape(-1).view(torch.uint8),
+                       want.reshape(-1).view(torch.uint8))
+
+
+def checkpoint_phase(np, torch, dev, workdir: Path, wrappers: dict,
+                     by_path: dict, layers: int, widths=None) -> dict:
+    """Phase 5: erasure-coded checkpointing of a training state on the card
+    (``widths`` at ``layers`` layers, the backbone's by default) under the
+    default ``CheckpointConfig``. gf: ``save_async`` (the caller then
+    overwrites a tensor), two hosts' block files emptied and the hosts
+    failed, a parallel degraded ``restore`` held byte for byte against the
+    state as it was saved, and ``repair`` (the emptied files must hash as
+    they did). Then crs and mxu save the state cut to ``BIT_LAYERS``
+    layers, and their block files must hash as a gf save of it. Each
+    backend's wrappers count from 0 over its part into
+    ``by_path[name]["checkpoint"]``."""
+    from repro_torch.ftx import CheckpointConfig, CheckpointManager
+
+    widths = widths or QWEN2
+    default = CheckpointConfig()
+    check(dev.type != "cuda" or default.store.backend == "gf",
+          f"default checkpoint backend on CUDA is {default.store.backend!r}")
+    state = train_state(np, torch, dev, widths, layers)
+    nbytes = sum(t.numel() * t.element_size()
+                 for part in (state["params"], state["opt_state"]["m"],
+                              state["opt_state"]["v"]) for t in part.values())
+    st = default.store
+    need = 2 * nbytes * (st.k + st.r + st.p) // st.k
+    free = shutil.disk_usage(workdir).free
+    check(free > need, f"checkpoint needs {need} bytes of disk, {free} free")
+    print(f"[ckpt] state on {dev}: {sum(t.numel() for t in state['params'].values())}"
+          f" parameters (bf16) and two AdamW moments (fp32) over {layers} "
+          f"layers, {nbytes} bytes; store {default.store}")
+    gf = wrappers["gf"][0]
+    for fn in wrappers["gf"]:
+        fn.launches = 0
+
+    # save_async: the snapshot is the caller's stall; overwriting a tensor
+    # after it returns must not reach the checkpoint.
+    cm = CheckpointManager(workdir / "gf", default, device=dev)
+    embed = state["params"]["model.embed_tokens.weight"]
+    saved_embed = embed.clone()
+    fut = cm.save_async(1, state)
+    embed.add_(1.0)
+    info = fut.result()
+    state["params"]["model.embed_tokens.weight"] = saved_embed
+    del embed
+    save_launches = gf.launches
+    enc = info["encode"]
+    on_card = dev.type == "cuda"
+    check(enc["launches"] > 0 and (not on_card
+                                   or save_launches >= enc["launches"]),
+          f"checkpoint save: the kernel launched {save_launches} times for "
+          f"{enc['launches']} encode launches")
+
+    # Two hosts lost: their block files emptied (only a decode or the
+    # repair can bring their bytes back) and the hosts failed.
+    step_dir = workdir / "gf" / "step1"
+    lost = {p: sha(p) for h in CKPT_HOSTS
+            for p in (step_dir / f"node{h}").glob("*.blk")}
+    for p in lost:
+        p.write_bytes(b"")
+    cm.fail_hosts(1, CKPT_HOSTS)
+    before = gf.launches
+    t0 = time.perf_counter()
+    restored, tele = cm.restore(1, state)
+    restore_wall = time.perf_counter() - t0
+    restore_launches = gf.launches - before
+    bad = [path for path, got, want in leaf_pairs(restored, state)
+           if not same_bytes(torch, got, want)]
+    check(not bad, f"restore after losing hosts {CKPT_HOSTS}: {len(bad)} "
+          f"tensors differ, first {bad[:3]}")
+    check(tele["degraded_blocks"] > 0
+          and tele["restore_decode_launches"] > 0
+          and (not on_card
+               or restore_launches >= tele["restore_decode_launches"]),
+          f"restore: {tele['degraded_blocks']} degraded blocks, "
+          f"{tele['restore_decode_launches']} decode launches, kernel "
+          f"launches {restore_launches}")
+    del restored
+    before = gf.launches
+    rep = cm.repair(1)
+    repair_launches = gf.launches - before
+    bad = [p.name for p, h in lost.items() if sha(p) != h]
+    check(not bad, f"repair: {len(bad)} rebuilt block files differ")
+    check(rep["launches"] > 0
+          and (not on_card or repair_launches >= rep["launches"]),
+          f"repair: the kernel launched {repair_launches} times for "
+          f"{rep['launches']} launches")
+    for fn in wrappers["gf"]:
+        by_path[fn.__name__]["checkpoint"] = fn.launches
+    out = {"backend": "gf", "layers": layers, "bytes": info["bytes"],
+           "stripes": info["stripes"],
+           "snapshot_seconds": info["snapshot_seconds"],
+           "encode_seconds": info["encode_seconds"], "encode": enc,
+           "save_kernel_launches": save_launches,
+           "restore_wall_seconds": restore_wall,
+           "restore": tele, "restore_kernel_launches": restore_launches,
+           "lost_block_files": len(lost),
+           "repair": {k: rep[k] for k in (
+               "stripes_repaired", "patterns", "launches", "windows",
+               "blocks_read", "repairs_local", "repairs_global",
+               "wall_seconds", "read_seconds", "compute_seconds",
+               "write_seconds")},
+           "repair_kernel_launches": repair_launches}
+    print(f"[ckpt] gf: save_async + restore after losing hosts "
+          f"{CKPT_HOSTS} ({len(lost)} block files emptied): every tensor "
+          f"byte-equal; repair rebuilt the files byte-equal; "
+          + json.dumps(out))
+    shutil.rmtree(workdir / "gf", ignore_errors=True)
+
+    # crs and mxu: the state cut to BIT_LAYERS layers, beside gf's save.
+    cut = BIT_LAYERS if layers > BIT_LAYERS else layers
+    keep = [k for k in state["params"]
+            if not k.startswith("model.layers.")
+            or int(k.split(".")[2]) < cut]
+    small = {"params": {k: state["params"][k] for k in keep},
+             "opt_state": {"step": state["opt_state"]["step"],
+                           **{m: {k: state["opt_state"][m][k] for k in keep}
+                              for m in ("m", "v")}}}
+    hashes = {}
+    for backend in ("gf", "crs", "mxu"):
+        cfg = dataclasses.replace(
+            default, store=dataclasses.replace(default.store,
+                                               backend=backend))
+        for fn in wrappers[backend]:
+            fn.launches = 0
+        root = workdir / backend
+        t0 = time.perf_counter()
+        info = CheckpointManager(root, cfg, device=dev).save(1, small)
+        wall = time.perf_counter() - t0
+        batched = wrappers[backend][0]
+        check(info["encode"]["launches"] > 0
+              and (not on_card
+                   or batched.launches >= info["encode"]["launches"]),
+              f"{backend} save: the kernel launched {batched.launches} "
+              f"times for {info['encode']['launches']} encode launches")
+        if backend != "gf":
+            for fn in wrappers[backend]:
+                by_path[fn.__name__]["checkpoint"] = fn.launches
+        hashes[backend] = {p.relative_to(root).as_posix(): sha(p)
+                           for p in sorted(root.rglob("*.blk"))}
+        check(hashes[backend] == hashes["gf"],
+              f"{backend}: checkpoint block files differ from gf's")
+        print(f"[ckpt] {backend}: save of {cut} layers ({info['bytes']} "
+              f"bytes, {info['stripes']} stripes, {len(hashes[backend])} "
+              f"block files) in {wall} s, encode wall "
+              f"{info['encode']['wall_seconds']} s, kernel launches "
+              f"{batched.launches}"
+              + ("" if backend == "gf" else
+                 "; every block file hashes as gf's"))
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def payload(np, seed: int, size: int):

@@ -13,8 +13,8 @@ The second half of the module is the gather geometry shared by the stripe
 store and the repair pipeline: :func:`shard_layout` and :func:`plan_gather`
 turn an ``(S, ...)`` batch shape into the host buffers the gather fills.
 This slice runs on one card, so every batch gathers into one buffer
-attributed to shard 0; assembling per-device shards is ROADMAP queue 1
-item 3.
+attributed to shard 0; assembling per-device shards is in ROADMAP queue
+1 (multi-device dist).
 """
 from __future__ import annotations
 

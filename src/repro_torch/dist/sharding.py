@@ -8,7 +8,7 @@ resolution and the ambient-context API (``with_rules``/``current_rules``)
 so the store, engine and scheduler read the same spans as the reference.
 
 Splitting a launch over several cards comes in a later slice (ROADMAP
-queue 1 item 3): a :class:`MeshRules` over a mesh of more than one device
+queue 1, multi-device dist): a :class:`MeshRules` over a mesh of more than one device
 raises ``NotImplementedError`` when it is built.
 """
 from __future__ import annotations

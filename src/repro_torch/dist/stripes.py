@@ -5,7 +5,8 @@ the reference splits a batch's stripe axis ``S`` over the mesh's
 data-parallel axes, one launch per device. This slice runs on one card:
 the span helpers keep the reference's answers (which all come out 1 on a
 single-device mesh) and :func:`sharded_launch` calls the kernel body
-directly. The per-device split is ROADMAP queue 1 item 3.
+directly. The per-device split is in ROADMAP queue 1 (multi-device
+dist).
 """
 from __future__ import annotations
 

@@ -4,8 +4,11 @@
 rebuild every affected stripe through the store's batched engine, which
 groups stripes by failure pattern and issues one compiled plan + one kernel
 launch per pattern chunk instead of a Python loop over stripes.
-Fleet durability sizing (``size_fleet``/``evaluate``) comes with the
-reliability simulator in a later slice.
+``read_report`` summarizes the degraded-read serving path, which
+``repro_torch.serve.BlockServer`` drives with many clients. Fleet
+durability sizing (``size_fleet``/``evaluate``) needs the port's own copy
+of ``core/reliability.py`` and comes with it in a later slice (ROADMAP
+queue 1), ahead of the reliability simulator.
 """
 from __future__ import annotations
 

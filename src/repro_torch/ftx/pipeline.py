@@ -42,6 +42,13 @@ pattern is genuinely unrecoverable. Results are bit-identical to the
 synchronous path by construction: GF(2^8) decoding is exact, so windowing,
 thread scheduling and re-planning change wall-clock only, never bytes.
 
+:class:`EncodePipeline` runs the same double buffer in reverse for the
+streaming put path (erasure-coded checkpoints): a packer thread slices
+window *i+1*'s ``(S, k, B)`` plaintext off a frozen host snapshot, window
+*i* goes to the card for one ``BatchedCodecEngine.encode`` launch and
+comes back in one copy, and the writer thread drains window *i-1*'s
+encoded stripes through ``StripeStreamWriter.write_window``.
+
 Every stage records wall spans; :class:`PipelineResult` aggregates them so
 overlap is *observable*: ``read+compute+write > wall`` is the pipeline
 working, and ``overlap_seconds`` quantifies it.
@@ -387,5 +394,153 @@ class RepairPipeline:
 
             run_double_buffered(windows, produce=produce, consume=consume,
                                 writer=writer)
+        res.wall_seconds = time.perf_counter() - t_run
+        return res
+
+
+@dataclasses.dataclass(frozen=True)
+class EncodeWindow:
+    """One encode-pipeline unit: a run of consecutive stream stripes and
+    the byte range of the snapshot buffer that fills them."""
+    index: int
+    first: int                             # first stream stripe
+    count: int                             # stripes in this window
+    lo: int                                # snapshot byte range [lo, hi)
+    hi: int
+
+
+class EncodePipeline:
+    """The repair pipeline run in reverse: stream a frozen host buffer
+    through batched encode into a store's streaming put path.
+
+    The stage machinery is :func:`run_double_buffered` with the data flow
+    mirrored — instead of reader pools filling a batch from disk for the
+    decoder, a packer thread slices window *i+1*'s ``(S, k, B)`` plaintext
+    batch out of the snapshot buffer (zero-padding the tail stripe exactly
+    like ``seal``), window *i* moves to the card and encodes through
+    ``BatchedCodecEngine.encode`` (one launch of the backend's batched
+    kernel) and comes back to the host in one copy, and window *i-1*'s
+    encoded stripes drain to disk on the writer thread via
+    :meth:`StripeStreamWriter.write_window`. Chunking reuses
+    ``launch_step`` (byte-budget-capped, mesh-span-aligned), so encode
+    launches are cut exactly like repair launches.
+
+    Spans land in the same :class:`PipelineResult` vocabulary as repair:
+    ``read_seconds`` is host packing, ``compute_seconds`` the copy to the
+    card, the encode and the copy back, ``write_seconds`` the drain, and
+    ``overlap_seconds`` the stall the double buffer hides — a checkpoint's
+    encode-overlap fraction is ``overlap / busy``.
+
+    ``pipelined=False`` runs the identical stages strictly in sequence
+    (the serial baseline); bytes are identical either way.
+    ``drain_stall`` sleeps that many wall seconds per drained window —
+    the write-side analogue of ``StoreConfig.io_stall_scale``, making a
+    slow persistence medium wall-real for overlap experiments.
+
+    ``hook(stage, window_index)`` fires at "pack" (slice submitted),
+    "encode" (window encoded), "drain" (window persisted) — tests use it
+    to crash saves at precise pipeline points.
+    """
+
+    def __init__(self, store, *, window: Optional[int] = None,
+                 mesh_rules=None, hook: Optional[PipelineHook] = None,
+                 pipelined: bool = True, drain_stall: float = 0.0):
+        self.store = store
+        cfg = store.cfg
+        self.mesh_rules = mesh_rules
+        self.window = int(window or cfg.pipeline_window or cfg.batch_stripes)
+        self.hook = hook or (lambda stage, index: None)
+        self.pipelined = pipelined
+        self.drain_stall = float(drain_stall)
+        self._span_lock = threading.Lock()
+
+    # ------------------------------------------------------------- windows
+    def _windows(self, total_stripes: int) -> list[EncodeWindow]:
+        from .stripestore import launch_step
+
+        cfg = self.store.cfg
+        # The "reads" of an encode window are the n blocks it will hold on
+        # the host at once (k plaintext in, n encoded out).
+        step = align_stripe_window(
+            launch_step(cfg, self.store.n, self.window), self.mesh_rules)
+        extent = cfg.k * cfg.block_size
+        out: list[EncodeWindow] = []
+        for first in range(0, total_stripes, step):
+            count = min(step, total_stripes - first)
+            out.append(EncodeWindow(len(out), first, count,
+                                    first * extent, (first + count) * extent))
+        return out
+
+    # ------------------------------------------------------------- stages
+    def _pack(self, flat: np.ndarray, win: EncodeWindow) -> np.ndarray:
+        """Slice + zero-pad one window's plaintext batch off the snapshot."""
+        cfg = self.store.cfg
+        batch = np.zeros(win.count * cfg.k * cfg.block_size, np.uint8)
+        src = flat[win.lo:min(win.hi, len(flat))]
+        batch[:len(src)] = src
+        return batch.reshape(win.count, cfg.k, cfg.block_size)
+
+    def _encode(self, win: EncodeWindow, batch: np.ndarray,
+                res: PipelineResult) -> np.ndarray:
+        engine = self.store.engine
+        t0 = time.perf_counter()
+        out = engine.encode(batch, self.mesh_rules).cpu().numpy()
+        t1 = time.perf_counter()
+        _record_span(self._span_lock, res, "compute", win.index, t0, t1)
+        res.launches += 1
+        res.devices = max(res.devices, engine.last_span)
+        res.device_launches += engine.last_span
+        return out
+
+    def _drain(self, stream, win: EncodeWindow, encoded: np.ndarray,
+               res: PipelineResult) -> None:
+        t0 = time.perf_counter()
+        stream.write_window(win.first, encoded)
+        if self.drain_stall > 0.0:
+            time.sleep(self.drain_stall)
+        t1 = time.perf_counter()
+        _record_span(self._span_lock, res, "write", win.index, t0, t1)
+        self.hook("drain", win.index)
+
+    # ---------------------------------------------------------------- run
+    def run(self, stream, flat: np.ndarray) -> PipelineResult:
+        """Encode ``flat`` (the frozen snapshot bytes) into ``stream`` (a
+        :class:`StripeStreamWriter` sized for it). The caller closes or
+        aborts the stream — on error this raises with windows possibly
+        half-drained, and the stream refuses to ``close``."""
+        flat = np.asarray(flat, np.uint8).reshape(-1)
+        res = PipelineResult()
+        windows = self._windows(stream.num_stripes)
+        res.windows = len(windows)
+        if not windows:
+            return res
+        t_run = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            packer = stack.enter_context(ThreadPoolExecutor(
+                1, thread_name_prefix="ckpt-pack"))
+            writer = stack.enter_context(ThreadPoolExecutor(
+                1, thread_name_prefix="ckpt-write"))
+
+            def produce(win: EncodeWindow):
+                t0 = time.perf_counter()
+                fut = packer.submit(self._pack, flat, win)
+                self.hook("pack", win.index)
+                return (fut, t0)
+
+            def consume(win: EncodeWindow, token):
+                fut, t0 = token
+                batch = fut.result()
+                _record_span(self._span_lock, res, "read", win.index,
+                             t0, time.perf_counter())
+                encoded = self._encode(win, batch, res)
+                self.hook("encode", win.index)
+                return lambda: self._drain(stream, win, encoded, res)
+
+            if self.pipelined:
+                run_double_buffered(windows, produce=produce,
+                                    consume=consume, writer=writer)
+            else:
+                for win in windows:        # serial baseline: no overlap
+                    consume(win, produce(win))()
         res.wall_seconds = time.perf_counter() - t_run
         return res

@@ -475,6 +475,19 @@ class StripeStore:
         self._open_sid = None
         self._open_fill = 0
 
+    def stream_writer(self, key: str, total_bytes: int) -> "StripeStreamWriter":
+        """Open the streaming put path: pre-allocate every stripe for a
+        ``total_bytes``-sized object so fully *encoded* windows can be
+        persisted — in any order, from a writer thread — while upstream
+        windows are still encoding (the checkpoint pipeline's drain stage).
+        ``close()`` registers exactly the object chain ``put`` + ``seal``
+        would have produced (head key plus ``#cont`` continuations, one per
+        stripe, zero-padded tail), so ``get``/``read_range`` serve streamed
+        bytes identically to packed ones."""
+        if self._open_sid is not None:
+            raise RuntimeError("seal() the open stripe before stream_writer")
+        return StripeStreamWriter(self, key, int(total_bytes))
+
     # ------------------------------------------------------------- reads
     def get(self, key: str) -> np.ndarray:
         """Read an object; degraded reads repair through the planner and,
@@ -751,6 +764,37 @@ class StripeStore:
 
     def revive_node(self, node: int) -> None:
         self.nodes[node] = NodeState.UP
+
+    def expand(self, topology) -> list[int]:
+        """Grow the fleet to ``topology`` (same or more nodes) in place.
+
+        The fleet-expansion half of the rebalancing story (DESIGN.md §14):
+        new nodes join UP and empty, existing node ids keep their state,
+        placement, and simulated latency (the latency model re-draws from
+        the same seed, so the original prefix is bit-identical), and the
+        new topology drives all future placement, gather sharding, and
+        destination selection. Existing stripes are *not* moved: the
+        rebalancer that smooths load onto the new capacity
+        (``ftx/rebalance.py``) comes with a later slice.
+
+        Returns the newly added node ids (empty when only the domain
+        geometry changed).
+        """
+        if topology.num_nodes < self.num_nodes:
+            raise ValueError(f"cannot shrink: store has {self.num_nodes} "
+                             f"nodes, topology has {topology.num_nodes}")
+        added = list(range(self.num_nodes, topology.num_nodes))
+        self.num_nodes = topology.num_nodes
+        self.topology = topology
+        self._topology_explicit = True
+        lat = np.random.default_rng(self.cfg.seed).gamma(
+            2.0, 5.0, self.num_nodes)
+        for i in added:
+            self.nodes[i] = NodeState.UP
+            self.latency_ms[i] = float(lat[i])
+            (self.root / f"node{i}").mkdir(parents=True, exist_ok=True)
+        self.placement = placement_from_topology(self, topology)
+        return added
 
     def repair_all(self, spare_of: Optional[dict[int, int]] = None, *,
                    options: Optional["RepairOptions"] = None) -> dict:
@@ -1138,3 +1182,93 @@ class StripeStore:
         for k, m in manifest["objects"].items():
             store.objects[k] = ObjectMeta(**m)
         return store
+
+
+class StripeStreamWriter:
+    """Streaming put path: persist pre-encoded stripes for one object.
+
+    ``put`` buffers plaintext on the coordinator and ``seal`` encodes one
+    stripe at a time; the checkpoint encode pipeline instead produces whole
+    ``(S, n, B)`` *encoded* windows off the batched engine and drains them
+    from a writer thread while later windows are still encoding. This
+    writer pre-allocates all stripes (ids + policy-driven placement) for a
+    known object size up front — cheap host bookkeeping, no buffers — then
+    accepts encoded windows in any order from any thread. ``close``
+    registers the exact object chain ``put`` + ``seal`` would have written
+    (head key plus ``#cont`` continuations, one stripe-extent object per
+    stripe, zero-padded tail), so the streamed object reads back
+    byte-identically through ``get``/``read_range``.
+    """
+
+    def __init__(self, store: StripeStore, key: str, total_bytes: int):
+        if total_bytes < 0:
+            raise ValueError("total_bytes must be >= 0")
+        if key in store.objects:
+            raise ValueError(f"object {key!r} already exists")
+        self.store = store
+        self.key = key
+        self.total_bytes = total_bytes
+        extent = store.cfg.k * store.cfg.block_size
+        # A zero-byte object still occupies one (all-zeros) stripe, same as
+        # put() opening a stripe for it.
+        self.num_stripes = max(1, -(-total_bytes // extent))
+        self.sids = [store._alloc_stripe() for _ in range(self.num_stripes)]
+        self._written: set[int] = set()
+        self._lock = threading.Lock()
+        self._closed = False
+
+    def write_window(self, first: int, encoded: np.ndarray) -> None:
+        """Persist ``encoded`` — shape ``(S, n, block_size)``, already
+        through the codec — as stream stripes ``first .. first+S-1``.
+        Thread-safe; windows may land in any order."""
+        enc = np.asarray(encoded, np.uint8)
+        n, B = self.store.n, self.store.cfg.block_size
+        if enc.ndim != 3 or enc.shape[1:] != (n, B):
+            raise ValueError(f"window shape {enc.shape} != (S, {n}, {B})")
+        if first < 0 or first + enc.shape[0] > self.num_stripes:
+            raise ValueError(f"window [{first}, {first + enc.shape[0]}) "
+                             f"outside {self.num_stripes}-stripe stream")
+        for i in range(enc.shape[0]):
+            sid = self.sids[first + i]
+            for b in range(n):
+                self.store._write_block(sid, b, enc[i, b])
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("stream writer already closed")
+            self._written.update(range(first, first + enc.shape[0]))
+
+    def close(self) -> None:
+        """Register the object chain. Every stripe must have been written —
+        a partial stream must ``abort()`` instead."""
+        with self._lock:
+            if self._closed:
+                return
+            missing = self.num_stripes - len(self._written)
+            if missing:
+                raise RuntimeError(f"cannot close stream: {missing} of "
+                                   f"{self.num_stripes} stripes unwritten")
+            self._closed = True
+        extent = self.store.cfg.k * self.store.cfg.block_size
+        remaining = self.total_bytes
+        cur = self.key
+        for sid in self.sids:
+            take = min(extent, remaining)
+            self.store.objects[cur] = ObjectMeta(key=cur, size=take, sid=sid,
+                                                 block=0, offset=0)
+            remaining -= take
+            cur = cur + "#cont"
+
+    def abort(self) -> None:
+        """Drop the allocated stripes (and any block files already written)
+        so a failed encode leaves no phantom stripes behind."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        for sid in self.sids:
+            st = self.store.stripes.pop(sid, None)
+            if st is None:
+                continue
+            for b, node in enumerate(st.node_of_block):
+                path = self.store.root / f"node{node}" / f"s{sid}_b{b}.blk"
+                path.unlink(missing_ok=True)
