@@ -57,20 +57,41 @@ Phases (any failure raises and the script exits non-zero):
    against the state as saved, and ``repair`` (the emptied files must hash
    as they did). crs and mxu then save the state cut to 2 layers, and
    their block files must hash as a gf save of it.
+6. Reliability: the fleet simulator on the card. 6a: ``BitSource`` (the
+   threefry chain in torch) against a table of the reference's bits and
+   against the numpy chain over 2^20 random triples; the event select
+   against numpy on schedules with ties and all-``inf`` rows. 6b: the
+   reference's all-processes golden run (azure(4,2,1), 6 trials, seed 3):
+   counts, exposure and a hash of the event logs equal to the reference's
+   constants, and the port's oracle with host bits bit-identical to the
+   card's engine. 6c: cp-azure and azure at P5 (24,2,2) on 28 nodes in 7
+   racks under every failure process, 2000 trials each (a ``[sim]`` line
+   each: losses, MTTDL, events, epochs, events/s, and the wall split
+   between the device calls and the host loop), and at 500 trials the
+   card's engine equal to the host's field for field. 6d: cp-azure P5
+   with the bandwidth of phase 3's two-node repair, a calibration store
+   (seal and repair: the GF(2^8) kernels' ``sim`` launches; the failed
+   node's emptied block files rebuilt byte-equal, and every block file
+   equal to a twin store's on the host) and
+   ``python -m repro_torch.launch.simulate --calibrate ... --closed-form
+   --oracle`` in a subprocess, which must exit 0 bit-identical.
 
-Each path (3, 4, 5) runs with the kernel wrappers' launch counts set to 0
+Each path (3, 4, 5, 6) runs with the kernel wrappers' launch counts set to 0
 just before it and read just after, and fails if a kernel it runs was
 never launched. The line before the last is a JSON object with one entry
 per kernel (``launches`` is phase 3's count, ``launches_by_path`` each
-path's); the
+path's; the simulator's select and draws are plain torch on the card, not
+kernels of this line); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
 outside a checkout, it fails and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -348,8 +369,9 @@ def main() -> None:
     print(f"[copy] host->device of the S={big[0]} k={big[2]} window "
           f"({host.nbytes} bytes, pageable): {h2d:.4f} ms against "
           f"{timings[big][0]:.4f} ms in the kernel")
-    # The shapes the serving and checkpoint paths (phases 4 and 5) give
-    # the batched kernel, each beside its plain version and its bound.
+    # The shapes the serving, checkpoint and calibration paths (phases 4,
+    # 5 and 6) give the kernel, each beside its plain version and its
+    # bound; compare() holds the flat kernel too where S = 1.
     for (path, s, m, k, bb) in GF_PATH_SHAPES:
         coef = rand((m, k))
         data = rand((s, k, bb))
@@ -363,7 +385,8 @@ def main() -> None:
               f"B={bb}: {kms:.4f} ms (device {dms:.4f} ms), plain "
               f"{pms:.4f} ms, bound {bms:.4f} ms ({by})")
     print(f"[kernel] {sweep} sweep shapes, {len(shapes) + 1} main-path "
-          f"shapes and {len(GF_PATH_SHAPES)} serving and checkpoint shapes "
+          f"shapes and {len(GF_PATH_SHAPES)} serving, checkpoint and "
+          f"calibration shapes "
           f"byte-equal to the plain version; no single PyTorch call "
           f"computes a GF(2^8) matmul, so library_ms is null")
 
@@ -397,6 +420,7 @@ def main() -> None:
                 launches[fn.__name__] = fn.launches
                 by_path[fn.__name__]["main"] = fn.launches
             if backend == "gf":
+                gf_report = report
                 # ------------------------- 4. serving from the gf store
                 for fn in wrappers["gf"]:
                     fn.launches = 0
@@ -422,6 +446,14 @@ def main() -> None:
     try:
         checkpoint_phase(np, torch, dev, workdir, wrappers, by_path,
                          QWEN2_LAYERS)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---------------------------------------------------- 6. reliability
+    workdir = Path(tempfile.mkdtemp(prefix="sim-", dir=ROOT / "_smoke"))
+    try:
+        reliability_phase(np, torch, dev, workdir, by_path,
+                          gf_report["repair_3_4"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -706,11 +738,14 @@ REPAIR_PLANS = ((1, 12), (1, 2), (2, 24), (2, 13))
 # a single lost P5 block decoded from its 12-block local group at 1 MiB;
 # the checkpoint store's (k=8, 256 KiB) encode windows of 32 stripes and
 # the tail of 2355 stripes, and its decodes with hosts 1 and 2 lost, on
-# restore (one or two targets) and repair.
+# restore (one or two targets) and repair; phase 6's calibration store
+# (cp-azure(24,2,2) at 2 KiB blocks): its seal's flat parity encode, one a
+# stripe, and its repair's local decode, one stripe a launch.
 GF_PATH_SHAPES = (("serve", 1, 1, 12, 1 << 20), ("save", 32, 4, 8, 1 << 18),
                   ("save", 19, 4, 8, 1 << 18), ("restore", 32, 1, 4, 1 << 18),
                   ("restore", 32, 2, 8, 1 << 18),
-                  ("repair", 32, 2, 5, 1 << 18))
+                  ("repair", 32, 2, 5, 1 << 18), ("sim", 1, 4, 24, 2048),
+                  ("sim", 1, 1, 12, 2048))
 # (path, S, m, k, P) of phase 5's crs and mxu encode windows: 791 stripes of
 # the 2-layer state, 32 a window, P = 256 KiB / 8.
 BIT_PATH_SHAPES = (("save", 32, 4, 8, 1 << 15), ("save", 23, 4, 8, 1 << 15))
@@ -793,8 +828,8 @@ def drive_main_path(np, torch, cfg, workdir: Path, device, batched,
           "sealed parity differs from the plain version")
 
     fields = ("stripes_repaired", "patterns", "launches", "windows",
-              "blocks_read", "wall_seconds", "read_seconds",
-              "compute_seconds", "write_seconds")
+              "blocks_read", "bytes_read", "sim_seconds", "wall_seconds",
+              "read_seconds", "compute_seconds", "write_seconds")
 
     def repair(nodes):
         """Empty the failed nodes' block files (only the repair can bring
@@ -1211,6 +1246,366 @@ def checkpoint_phase(np, torch, dev, workdir: Path, wrappers: dict,
               + ("" if backend == "gf" else
                  "; every block file hashes as gf's"))
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------ phase 6: reliability
+# (seed, trial, stream, seq, bits) of the reference simulator's BitSource
+# (tests/test_torch_sim.py holds every row to the JAX package): each field
+# at 0 and at 0xFFFFFFFF, small ids, and random rows.
+SIM_BITS = (
+    (0x0, 0x0, 0x0, 0x0, 0x125deed8),
+    (0x0, 0x0, 0x0, 0xffffffff, 0x928dcf22),
+    (0x0, 0x0, 0xffffffff, 0x0, 0xf96f317a),
+    (0x0, 0x0, 0xffffffff, 0xffffffff, 0xb54d8e37),
+    (0x0, 0xffffffff, 0x0, 0x0, 0xb907b85e),
+    (0x0, 0xffffffff, 0x0, 0xffffffff, 0x2e1525c1),
+    (0x0, 0xffffffff, 0xffffffff, 0x0, 0x1afbde97),
+    (0x0, 0xffffffff, 0xffffffff, 0xffffffff, 0x8b996003),
+    (0xffffffff, 0x0, 0x0, 0x0, 0xec0c1903),
+    (0xffffffff, 0x0, 0x0, 0xffffffff, 0xb242ce41),
+    (0xffffffff, 0x0, 0xffffffff, 0x0, 0x342dc7f5),
+    (0xffffffff, 0x0, 0xffffffff, 0xffffffff, 0xd9b3cba5),
+    (0xffffffff, 0xffffffff, 0x0, 0x0, 0xfc19a3ac),
+    (0xffffffff, 0xffffffff, 0x0, 0xffffffff, 0xf97ae7d4),
+    (0xffffffff, 0xffffffff, 0xffffffff, 0x0, 0xdd61faea),
+    (0xffffffff, 0xffffffff, 0xffffffff, 0xffffffff, 0xc464dc87),
+    (0x0, 0x0, 0x0, 0x1, 0x15258749),
+    (0x0, 0x1, 0x0, 0x0, 0xa00aa8f6),
+    (0x0, 0x0, 0x1, 0x0, 0x042e5e8e),
+    (0x1, 0x0, 0x0, 0x0, 0x3af20b35),
+    (0x3, 0x5, 0x39, 0x2, 0xcd16619a),
+    (0x2a, 0x7cf, 0x54, 0x11, 0xa1c5c6ad),
+    (0x96cb5536, 0x6b9df1db, 0x5b5002e3, 0xed05c5fc, 0xd779f752),
+    (0x61089ccf, 0x461c57f1, 0xe06f9b5b, 0xf5f5866, 0xf2aca180),
+    (0x7109c66a, 0x4f7fc6ad, 0x7a75db7, 0xb7dafd33, 0xd9b54f00),
+    (0xfef746e0, 0xc7ed5c40, 0x5289a5a7, 0x89e83b82, 0x68f4b823),
+    (0xd8f4c05a, 0x4fc94e08, 0x6cc2d061, 0xea95e557, 0x69b28f5a),
+    (0x3205bba6, 0xed965b52, 0xad0c7a3d, 0x6fbfd6b2, 0x4ceb6d57),
+    (0xc99e0653, 0x68e19d48, 0x5be73b16, 0x9cfda39d, 0x17c540c6),
+    (0xec272ef4, 0xb6af5889, 0xab279821, 0x9ec00b0e, 0x707fde38),
+    (0xd6dae3e9, 0x6ed69a29, 0xbdfdefab, 0x71203ba9, 0xf120b64c),
+    (0x9ab9a0b0, 0xa55fef8d, 0x5e28c429, 0xeaf91f0b, 0x40fad512),
+)
+SIM_RANDOM_TRIPLES = 1 << 20           # 6a: random triples against numpy
+# 6a: (T, D, N, R) of the select's random schedules: the P5 runs' widths
+# at their trial counts, a narrow one, and a single trial.
+SIM_SELECT_SHAPES = ((2000, 28, 28, 7), (500, 28, 28, 7), (37, 7, 7, 2),
+                     (1, 28, 28, 7))
+# 6c and 6d: trials of the P5 runs, and of the card-against-host check.
+SIM_TRIALS, SIM_CHECK_TRIALS, SIM_HORIZON = 2000, 500, 8000.0
+# 6d: the command line's run. With its default failure processes no trial
+# of 50 loses data, so the MTTDL (and sim_over_closed_form) would be
+# undefined; P5's rack bursts over its 7 failure domains give losses.
+SIM_CLI = ("--scheme", "cp-azure", "--k", "24", "--r", "2", "--p", "2",
+           "--closed-form", "--oracle", "--trials", "50",
+           "--rack-burst-hours", "80000", "--nodes", "28", "--domains", "7")
+
+# 6b: what the reference's simulate gives on golden_config (held by
+# tests/test_torch_sim.py against the JAX package).
+SIM_GOLDEN = {
+    "losses": 6, "observed_hours": "0x1.84e8346000000p+10", "events": 91,
+    "epochs": 32, "rejected": 0,
+    "counts": {"disk_fail": 20, "disk_fail_rejected": 0, "node_fail": 13,
+               "rack_fail": 2, "sector_error": 23, "scrub": 2,
+               "repair_done": 29, "data_loss": 6, "noop": 2},
+    "log_sha256": "8bb7afd4faf44572dae4fbc79a892e4c3f83afb8164a1d2ecb72a0f8"
+                  "39fb703b"}
+
+
+def golden_config(reliability, sim, schemes, topology):
+    """The reference's all-processes configuration (its engine-oracle
+    bit-identity test): azure(4,2,1) spread over 8 nodes in 2 racks,
+    Weibull lifetimes, node and rack bursts, latent errors, scrubbing,
+    strict model, planner costs; 6 trials, seed 3, events recorded. The
+    modules are passed in, so the same function builds it from the port
+    or from the reference. Returns ``(scheme, params, simulate kwargs)``."""
+    sch = schemes.make_scheme("azure", 4, 2, 1)
+    rel = reliability.ReliabilityParams(
+        node_mttf_years=0.02, bandwidth_gbps=0.002, detect_hours_single=2.0,
+        detect_hours_multi=10.0)
+    params = sim.SimParams(
+        disk_mttf_hours=400.0, weibull_shape=1.4, node_burst_hours=900.0,
+        rack_burst_hours=4000.0, lse_hours=700.0, scrub_hours=300.0,
+        model="strict", cost_model="planner", reliability=rel)
+    hier = sim.UnitHierarchy.from_topology(
+        sch.n, topology.Topology(num_nodes=8, num_domains=2), "spread")
+    return sch, params, dict(trials=6, horizon_hours=5000.0, seed=3,
+                             hierarchy=hier, record_events=True)
+
+
+def p5_config(reliability, sim, schemes, topology, scheme: str, rel=None):
+    """The paper's P5 geometry, (24, 2, 2), one disk per node over 28
+    nodes in 7 racks, contiguous placement, under every failure process:
+    exponential disk lives of 2000 h, node and rack bursts, latent errors
+    scrubbed every two weeks, planner repair costs at 0.002 Gbps (or
+    ``rel``). Returns ``(scheme, params, hierarchy)``."""
+    sch = schemes.make_scheme(scheme, 24, 2, 2)
+    params = sim.SimParams(
+        disk_mttf_hours=2000.0, weibull_shape=1.0, node_burst_hours=20000.0,
+        rack_burst_hours=80000.0, lse_hours=20000.0, scrub_hours=336.0,
+        cost_model="planner",
+        reliability=rel or reliability.ReliabilityParams(bandwidth_gbps=0.002))
+    hier = sim.UnitHierarchy.from_topology(
+        sch.n, topology.Topology(num_nodes=28, num_domains=7), "contiguous")
+    return sch, params, hier
+
+
+def sim_digest(res, to_doc) -> dict:
+    """A ``SimResult``'s outcome without its timings: counts, the exposure
+    as ``float.hex`` and a SHA-256 of its ``to_doc`` event logs (a numpy
+    scalar in a field, as the reference's engine leaves ``local``, written
+    as the Python value it holds)."""
+    logs = json.dumps([[to_doc(e) for e in trial] for trial in res.event_log],
+                      sort_keys=True, default=lambda x: x.item())
+    return {"losses": res.losses, "observed_hours": res.observed_hours.hex(),
+            "events": res.events, "epochs": res.epochs,
+            "rejected": res.rejected, "counts": res.counts,
+            "log_sha256": hashlib.sha256(logs.encode()).hexdigest()}
+
+
+SIM_FIELDS = ("scheme", "trials", "horizon_hours", "seed", "losses",
+              "observed_hours", "loss_times", "events", "epochs", "rejected",
+              "counts")
+
+
+def same_run(a, b, to_doc, oracle: bool = False) -> bool:
+    """Two ``SimResult``s agree field for field (timings aside), their
+    event logs through ``to_doc``. Against the oracle (``oracle=True``),
+    which runs one trial after another, the epochs are not compared and
+    the loss times are compared as sets of times."""
+    fields = [f for f in SIM_FIELDS
+              if not oracle or f not in ("epochs", "loss_times")]
+    return (all(getattr(a, f) == getattr(b, f) for f in fields)
+            and (not oracle or sorted(a.loss_times) == sorted(b.loss_times))
+            and [[to_doc(e) for e in t] for t in a.event_log]
+            == [[to_doc(e) for e in t] for t in b.event_log])
+
+
+def random_schedule(np, rng, t: int, d: int, n: int, r: int):
+    """A select input of ``t`` trials: float32 times from a few values
+    (ties in every row), a quarter of the entries ``inf``, and every
+    fifth row ``inf`` throughout."""
+    def part(*shape):
+        x = rng.integers(0, 6, shape).astype(np.float32)
+        x[rng.random(shape) < 0.25] = np.inf
+        x[::5] = np.inf
+        return x
+
+    return (part(t, d), part(t, n), part(t, r), part(t, d), part(t),
+            part(t))
+
+
+def sim_line(label: str, res) -> str:
+    """The ``[sim]`` line of a run: its outcome, and its wall split between
+    the device calls (each select and draw batch with its copies and
+    waits; per epoch beside the total) and the host loop."""
+    host = res.wall_seconds - res.select_seconds - res.bits_seconds
+    per = 1e3 / max(1, res.epochs)
+    return (f"[sim] {label}: trials={res.trials} losses={res.losses} "
+            f"mttdl_years={res.mttdl_years} events={res.events} "
+            f"epochs={res.epochs} event_parallelism="
+            f"{res.event_parallelism} events_per_s="
+            f"{res.events / res.wall_seconds} wall={res.wall_seconds} s: "
+            f"select {res.select_seconds} s ({res.select_seconds * per} ms "
+            f"an epoch) and bits {res.bits_seconds} s ({res.bits_seconds * per}"
+            f" ms an epoch) on the device (copies and waits included), host "
+            f"loop {host} s")
+
+
+@contextlib.contextmanager
+def losing_disks(store_cls):
+    """While open, ``store_cls.fail_node`` also empties the failed node's
+    block files, as a lost disk would. Yields ``{path: sha256}`` of each
+    emptied file as it was sealed."""
+    lost, fail_node = {}, store_cls.fail_node
+
+    def fail_and_empty(store, node):
+        fail_node(store, node)
+        for path in sorted((store.root / f"node{node}").glob("*.blk")):
+            lost[path] = sha(path)
+            path.write_bytes(b"")
+
+    store_cls.fail_node = fail_and_empty
+    try:
+        yield lost
+    finally:
+        store_cls.fail_node = fail_node
+
+
+def reliability_phase(np, torch, dev, workdir: Path, by_path: dict,
+                      calib_tele: dict, trials: int = SIM_TRIALS,
+                      check_trials: int = SIM_CHECK_TRIALS,
+                      triples: int = SIM_RANDOM_TRIPLES,
+                      cli: tuple = SIM_CLI) -> dict:
+    """Phase 6: the fleet reliability path on ``dev``. 6a: the card's bits
+    against the reference's table and the numpy chain, its select against
+    numpy; 6b: the golden run against the reference's constants and the
+    port's oracle; 6c: both schemes at P5, the card against the host at
+    ``check_trials``; 6d: P5 calibrated by phase 3's repair telemetry
+    ``calib_tele``, a calibration store (its GF(2^8) launches counted into
+    ``by_path[name]["sim"]``) and the command line in a subprocess.
+    Returns the readings."""
+    from repro_torch import sim
+    from repro_torch.core import reliability, schemes
+    from repro_torch.dist import topology
+    from repro_torch.ftx import StoreConfig, StripeStore
+    from repro_torch.ftx.events import to_doc
+    from repro_torch.kernels import gf256_matmul as gm
+    from repro_torch.sim.engine import select, select_np
+    from repro_torch.sim.rng import BitSource, threefry_bits_np
+
+    t_phase = time.perf_counter()
+    host = torch.device("cpu")
+    out = {}
+
+    # 6a. bits: the reference's table, then random triples against numpy.
+    for (seed, trial, stream, seq, want) in SIM_BITS:
+        got = int(BitSource(seed, dev).bit1(trial, stream, seq))
+        check(got == want, f"bits of {(seed, trial, stream, seq)} on {dev}: "
+              f"{got:#010x}, the reference's {want:#010x}")
+    rng = np.random.default_rng(SEED)
+    trip = rng.integers(0, 1 << 32, (triples, 3), dtype=np.uint64
+                        ).astype(np.uint32)
+    src = BitSource(SEED, dev)
+    src.bits(trip[:1024])                          # warm
+    t0 = time.perf_counter()
+    got = src.bits(trip)
+    bits_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = threefry_bits_np(src.key, trip)
+    plain_s = time.perf_counter() - t0
+    check(np.array_equal(got, want), f"bits of {triples} random triples on "
+          f"{dev} differ from the numpy chain in "
+          f"{int((got != want).sum())} rows")
+    out["bits"] = {"triples": triples, "seconds": bits_s,
+                   "numpy_seconds": plain_s}
+    print(f"[sim] bits: {len(SIM_BITS)} reference rows and {triples} random "
+          f"triples on {dev} equal to the reference and to the numpy chain; "
+          f"one call of {triples} in {bits_s} s (copies included), numpy "
+          f"{plain_s} s")
+    # select: ties in every row and inf rows, against numpy.
+    select(random_schedule(np, rng, *SIM_SELECT_SHAPES[0]), dev)   # warm
+    for (t, d, n, r) in SIM_SELECT_SHAPES:
+        sched = random_schedule(np, rng, t, d, n, r)
+        want = select_np(sched)
+        t0 = time.perf_counter()
+        got = select(sched, dev)
+        sel_s = time.perf_counter() - t0
+        check(all(np.array_equal(g, w) for g, w in zip(got, want))
+              and got[0].dtype == np.float32,
+              f"select on {dev} differs from numpy at T={t} D={d}")
+        out[f"select_{t}x{d}"] = sel_s
+    print(f"[sim] select: {len(SIM_SELECT_SHAPES)} random schedules with "
+          f"ties and inf rows on {dev} equal to numpy; one call at "
+          f"T=2000, D=28 in {out['select_2000x28']} s (copies included)")
+
+    # 6b. golden run: the reference's constants, and the oracle on the host.
+    sch, params, kw = golden_config(reliability, sim, schemes, topology)
+    res = sim.simulate(sch, params, device=dev, **kw)
+    got = sim_digest(res, to_doc)
+    check(got == SIM_GOLDEN, f"golden run on {dev} differs from the "
+          f"reference: {got}")
+    orc = sim.simulate_oracle(sch, params, device=host, **kw)
+    check(same_run(res, orc, to_doc, oracle=True),
+          f"the oracle with host bits differs from the engine on {dev}")
+    print(f"[sim] golden run on {dev}: {json.dumps(got)}; equal to the "
+          f"reference's and to the oracle's with host bits")
+
+    # 6c. P5, both schemes; the card against the host at check_trials.
+    for scheme in ("cp-azure", "azure"):
+        sch, params, hier = p5_config(reliability, sim, schemes, topology,
+                                      scheme)
+        kw = dict(horizon_hours=SIM_HORIZON, seed=0, hierarchy=hier)
+        res = sim.simulate(sch, params, trials=trials, device=dev, **kw)
+        check(res.losses > 0 and np.isfinite(res.mttdl_years)
+              and res.mttdl_years > 0,
+              f"{scheme} P5: {res.losses} losses, MTTDL {res.mttdl_years}")
+        print(sim_line(f"{scheme}(24,2,2) P5 on {dev}", res))
+        a, b = (sim.simulate(sch, params, trials=check_trials,
+                             record_events=True, device=d, **kw)
+                for d in (dev, host))
+        check(same_run(a, b, to_doc), f"{scheme} P5 at {check_trials} "
+              f"trials: the engine on {dev} differs from it on the host")
+        print(f"[sim] {scheme} P5 at {check_trials} trials: the engine on "
+              f"{dev} equals it on the host field for field "
+              f"({a.losses} losses, {a.events} events, every event log)")
+        out[scheme] = {f: getattr(res, f) for f in (
+            "trials", "losses", "events", "epochs", "mttdl_years",
+            "event_parallelism", "wall_seconds", "select_seconds",
+            "bits_seconds")}
+
+    # 6d. calibration: phase 3's repair telemetry into the failure model.
+    rel = sim.calibrated(reliability.ReliabilityParams(), calib_tele)
+    sch, params, hier = p5_config(reliability, sim, schemes, topology,
+                                  "cp-azure", rel)
+    res = sim.simulate(sch, params, trials=trials, horizon_hours=SIM_HORIZON,
+                       seed=0, hierarchy=hier, device=dev)
+    check(res.observed_hours > 0, "calibrated run observed nothing")
+    print(f"[sim] calibrated by phase 3's two-node repair: "
+          f"{rel.bandwidth_gbps} Gbps")
+    print(sim_line(f"cp-azure(24,2,2) P5 calibrated on {dev}", res))
+    out["calibrated"] = {"gbps": rel.bandwidth_gbps, "losses": res.losses,
+                         "mttdl_years": res.mttdl_years}
+    # A calibration store, as the command line builds one, with the
+    # GF(2^8) wrappers counted from 0; its failed node loses its disk, so
+    # only the repair can bring those blocks back. A twin on the host
+    # (plain versions) must seal and rebuild the same block files.
+    calib_cfg = StoreConfig(scheme="cp-azure", k=24, r=2, p=2,
+                            block_size=2048)
+    check(dev.type != "cuda" or calib_cfg.backend == "gf",
+          f"calibration store backend {calib_cfg.backend!r} on the card")
+    wrappers = (gm.gf256_matmul_batched, gm.gf256_matmul)
+    for fn in wrappers:
+        fn.launches = 0
+    with losing_disks(StripeStore) as lost:
+        tele = sim.measure_repair_bandwidth(workdir / "calib", calib_cfg,
+                                            device=dev)
+    for fn in wrappers:
+        by_path[fn.__name__]["sim"] = fn.launches
+        check(dev.type != "cuda" or fn.launches > 0,
+              f"{fn.__name__} was never launched on the calibration path")
+    check(lost and all(sha(p) == h for p, h in lost.items()),
+          f"calibration store on {dev}: rebuilt blocks differ from the "
+          f"sealed ones: {[p.name for p, h in lost.items() if sha(p) != h]}")
+    with losing_disks(StripeStore):
+        twin = sim.measure_repair_bandwidth(workdir / "calib_host",
+                                            calib_cfg, device=host)
+    files = {root: {p.relative_to(root).as_posix(): sha(p)
+                    for p in sorted(root.rglob("*.blk"))}
+             for root in (workdir / "calib", workdir / "calib_host")}
+    check(files[workdir / "calib"] == files[workdir / "calib_host"]
+          and all(tele[f] == twin[f] for f in (
+              "stripes_repaired", "blocks_read", "bytes_read", "launches")),
+          f"calibration store on {dev} differs from its twin on the host")
+    print(f"[sim] calibration store on {dev}: {tele['gbps']} Gbps from "
+          f"{tele['bytes_read']} bytes read; {len(lost)} emptied block "
+          f"files rebuilt byte-equal, all {len(files[workdir / 'calib'])} "
+          f"block files equal to the host twin's; kernel launches "
+          + json.dumps({fn.__name__: fn.launches for fn in wrappers}))
+    # The command line, in a subprocess on the same device.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.simulate", "--device",
+         dev.type, "--calibrate", str(workdir / "cli"), *cli],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"repro_torch.launch.simulate exited "
+          f"{run.returncode}: {run.stderr[-2000:]}")
+    doc = json.loads(run.stdout)
+    check(doc["oracle"]["bit_identical"] and "sim_over_closed_form" in doc,
+          f"repro_torch.launch.simulate: {run.stdout[-2000:]}")
+    check(f"{tele['gbps']:.4f} Gbps" in run.stderr,
+          f"the command line measured another bandwidth: {run.stderr}")
+    print(f"[sim] repro_torch.launch.simulate --device {dev.type} "
+          f"--calibrate ... {' '.join(cli)} in {cli_s} s: exit 0, "
+          f"bit_identical true, losses {doc['losses']}, mttdl_years "
+          f"{doc['mttdl_years']}, closed_form_years "
+          f"{doc['closed_form_years']}, sim_over_closed_form "
+          f"{doc['sim_over_closed_form']}")
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"[sim] phase 6 in {out['phase_seconds']} s")
     return out
 
 

@@ -5,6 +5,8 @@ Layers:
   cauchy      base MDS stripes + Appendix Theorem 1 coefficients
   schemes     the six LRC constructions (4 baselines + CP-Azure/CP-Uniform)
   repair      single-/multi-node repair planning (local-first, cascading)
+  metrics     ADRC / ARC1 / ARC2 / locality portions
+  reliability Markov-chain MTTDL
   planner     compiled + LRU-cached GF plans per (scheme, pattern, policy)
   codec       per-stripe encode/decode data path on torch tensors
   engine      batched multi-stripe executor (one launch per failure pattern)
@@ -28,3 +30,4 @@ from .repair import (  # noqa: F401
     multi_repair_plan,
     single_repair_plan,
 )
+from . import metrics, reliability  # noqa: F401

@@ -1,14 +1,20 @@
-"""Fleet repair orchestration and the degraded-read report.
+"""Fleet-level durability sizing and fleet repair orchestration.
+
+The paper's MTTDL analysis is per-stripe; an operator provisioning an
+erasure-coded checkpoint store for an N-node training fleet needs the
+fleet-level view: with S independent stripes, MTTDL_fleet ≈ MTTDL_stripe / S
+(competing exponentials), and the overhead/durability frontier across
+schemes and (k, r, p). ``size_fleet`` sweeps candidate geometries and
+returns those meeting a target fleet MTTDL at minimal storage overhead;
+``evaluate`` prices one geometry through the Markov chain of
+``repro_torch.core.reliability``.
 
 ``repair_failed_nodes`` is the fleet-repair entrypoint: mark nodes down and
 rebuild every affected stripe through the store's batched engine, which
 groups stripes by failure pattern and issues one compiled plan + one kernel
 launch per pattern chunk instead of a Python loop over stripes.
 ``read_report`` summarizes the degraded-read serving path, which
-``repro_torch.serve.BlockServer`` drives with many clients. Fleet
-durability sizing (``size_fleet``/``evaluate``) needs the port's own copy
-of ``core/reliability.py`` and comes with it in a later slice (ROADMAP
-queue 1), ahead of the reliability simulator.
+``repro_torch.serve.BlockServer`` drives with many clients.
 """
 from __future__ import annotations
 
@@ -17,9 +23,70 @@ from typing import Iterable, Optional
 
 import torch
 
+from repro_torch.core.reliability import ReliabilityParams, stripe_mttdl_years
+from repro_torch.core.schemes import make_scheme
 from repro_torch.device import resolve_device
 
 from .options import RepairOptions
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetSpec:
+    nodes: int                 # hosts contributing checkpoint shards
+    state_bytes: int           # total protected state (params + moments)
+    block_bytes: int = 1 << 28
+    target_mttdl_years: float = 1e6
+    params: ReliabilityParams = ReliabilityParams()
+
+
+@dataclasses.dataclass(frozen=True)
+class Candidate:
+    scheme: str
+    k: int
+    r: int
+    p: int
+    overhead: float            # (n/k) - 1
+    stripes: int
+    stripe_mttdl_years: float
+    fleet_mttdl_years: float
+
+    @property
+    def meets(self) -> bool:
+        return self.fleet_mttdl_years >= 0
+
+
+def evaluate(spec: FleetSpec, scheme: str, k: int, r: int, p: int,
+             samples: int = 400, model: str = "paper") -> Candidate:
+    s = make_scheme(scheme, k, r, p)
+    stripes = max(1, -(-spec.state_bytes // (k * spec.block_bytes)))
+    per = stripe_mttdl_years(s, spec.params, samples=samples, model=model)
+    return Candidate(scheme=scheme, k=k, r=r, p=p,
+                     overhead=s.n / k - 1.0, stripes=stripes,
+                     stripe_mttdl_years=per,
+                     fleet_mttdl_years=per / stripes)
+
+
+def size_fleet(spec: FleetSpec,
+               schemes: tuple[str, ...] = ("azure", "cp-azure", "cp-uniform"),
+               geometries: Optional[list[tuple[int, int, int]]] = None,
+               samples: int = 300, model: str = "paper") -> list[Candidate]:
+    """All candidates meeting the target, cheapest overhead first."""
+    geometries = geometries or [(12, 2, 2), (24, 2, 2), (24, 3, 3),
+                                (48, 4, 3), (48, 4, 4), (96, 5, 4)]
+    out = []
+    for scheme in schemes:
+        for (k, r, p) in geometries:
+            if k + r + p > spec.nodes:
+                continue
+            try:
+                c = evaluate(spec, scheme, k, r, p, samples=samples,
+                             model=model)
+            except Exception:
+                continue
+            out.append(c)
+    ok = [c for c in out if c.fleet_mttdl_years >= spec.target_mttdl_years]
+    pool = ok or out
+    return sorted(pool, key=lambda c: (c.overhead, -c.fleet_mttdl_years))
 
 
 # --------------------------------------------------------------------------

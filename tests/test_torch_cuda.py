@@ -265,3 +265,70 @@ def test_cuda_main_path_matches_cpu(cuda, backend, tmp_path, rng):
     for f in sorted((tmp_path / "cuda").glob("node*/*.blk")):
         twin = tmp_path / "cpu" / f.relative_to(tmp_path / "cuda")
         assert f.read_bytes() == twin.read_bytes()
+
+
+# ------------------------------------------------- the fleet simulator
+
+def test_cuda_bits_match_the_numpy_chain(cuda):
+    from repro_torch.sim.rng import BitSource, threefry_bits_np
+
+    g = np.random.default_rng(5)
+    t = g.integers(0, 1 << 32, (100003, 3), dtype=np.uint64).astype(np.uint32)
+    t[:2] = [[0, 0, 0], [0xFFFFFFFF] * 3]
+    for seed in (0, 3, 0xFFFFFFFF):
+        src = BitSource(seed, cuda)
+        assert src.device.type == "cuda"
+        assert np.array_equal(src.bits(t), threefry_bits_np(src.key, t))
+        assert src.bit1(7, 8, 9) == threefry_bits_np(src.key, [[7, 8, 9]])[0]
+
+
+@pytest.mark.parametrize("t,d,n,r", [(2000, 28, 28, 7), (37, 7, 7, 2),
+                                     (1, 4, 1, 1)])
+def test_cuda_select_breaks_ties_as_numpy(cuda, t, d, n, r):
+    """Ties take the first column, then the lowest unit, and all-inf rows
+    pick column 0 and unit 0, as ``np.argmin`` (and the reference's
+    ``jnp.argmin``) do."""
+    from repro_torch.sim.engine import select, select_np
+
+    g = np.random.default_rng(t)
+
+    def part(*shape):
+        x = g.integers(0, 4, shape).astype(np.float32)
+        x[g.random(shape) < 0.3] = np.inf
+        x[::4] = np.inf
+        return x
+
+    sched = (part(t, d), part(t, n), part(t, r), part(t, d), part(t),
+             part(t))
+    got, want = select(sched, cuda), select_np(sched)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+def test_cuda_simulate_matches_cpu(cuda):
+    """40 trials of the P5 configuration with every failure process: the
+    engine on the card and on the host give the same result and events."""
+    from repro_torch import sim
+    from repro_torch.core.reliability import ReliabilityParams
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.dist.topology import Topology
+    from repro_torch.ftx.events import to_doc
+
+    sch = make_scheme("cp-azure", 24, 2, 2)
+    params = sim.SimParams(
+        disk_mttf_hours=2000.0, node_burst_hours=20000.0,
+        rack_burst_hours=80000.0, lse_hours=20000.0, scrub_hours=336.0,
+        cost_model="planner",
+        reliability=ReliabilityParams(bandwidth_gbps=0.002))
+    hier = sim.UnitHierarchy.from_topology(
+        sch.n, Topology(num_nodes=28, num_domains=7), "contiguous")
+    a, b = (sim.simulate(sch, params, trials=40, horizon_hours=8000.0,
+                         seed=0, hierarchy=hier, record_events=True,
+                         device=dev)
+            for dev in (cuda, torch.device("cpu")))
+    for f in ("losses", "observed_hours", "loss_times", "events", "epochs",
+              "rejected", "counts"):
+        assert getattr(a, f) == getattr(b, f), f
+    assert [[to_doc(e) for e in t] for t in a.event_log] == \
+        [[to_doc(e) for e in t] for t in b.event_log]
+    assert a.losses > 0
