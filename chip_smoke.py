@@ -76,11 +76,33 @@ Phases (any failure raises and the script exits non-zero):
    ``python -m repro_torch.launch.simulate --calibrate ... --closed-form
    --oracle`` in a subprocess, which must exit 0 bit-identical.
 
-Each path (3, 4, 5, 6) runs with the kernel wrappers' launch counts set to 0
-just before it and read just after, and fails if a kernel it runs was
-never launched. The line before the last is a JSON object with one entry
+7. Sharding and orchestration. 7a, right after phase 4 on phase 3's gf
+   store with every node up: nodes 3 and 4 fail, their block files are
+   emptied, and ``repair_failed_nodes`` runs under an 8x1 mesh of eight
+   positions of the card: the reference's counts, 7 launches over 8
+   devices (56 per-device launches of the GF(2^8) kernel: at 1 MiB blocks
+   the 256 MiB stack budget splits each 16-stripe group of 24 reads into
+   two windows; 4 and 32 hold at 1 KiB), block files hashing as sealed;
+   the two-node plan on a 16-stripe window through crs and mxu split 8
+   ways, byte-equal to the unsharded call and to the sealed blocks (phase
+   2b holds both kernels to their plain versions at one shard's shape,
+   S=2 R8=16 K8=192 P=131072); the window's
+   time unsharded and split, and one shard's launch beside its bound. 7b:
+   a new P5 store at 1 MiB blocks (64 stripes, 48 nodes in 24 two-node
+   domains, spread width 16) replays ``tests/data/correlated_trace.json``
+   with the global schedule, topology destinations, the failed nodes left
+   down and a rebalance pass, then ``FailureInjector(store, seed=0)`` fails
+   and repairs three more nodes; every failed node loses its block files,
+   every count must be the reference's (the constants below), every block
+   file must hash as sealed and the payload must come back. The replay
+   command line then runs twice on the card and once on the host and
+   must print the same JSON each time.
+
+Each path (3, 4, 5, 6, 7a, 7b) runs with the kernel wrappers' launch counts
+set to 0 just before it and read just after, and fails if a kernel it runs
+was never launched. The line before the last is a JSON object with one entry
 per kernel (``launches`` is phase 3's count, ``launches_by_path`` each
-path's; the simulator's select and draws are plain torch on the card, not
+path's, ``sharded`` and ``replay`` for 7a and 7b; the simulator's select and draws are plain torch on the card, not
 kernels of this line); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
 outside a checkout, it fails and prints no result.
@@ -91,6 +113,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -111,6 +134,28 @@ INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 # against the JAX package): failed nodes -> (patterns, blocks_read,
 # repairs_local, repairs_global).
 EXPECTED = {(3,): (4, 608, 64, 0), (3, 4): (4, 1360, 16, 48)}
+# Phase 7a: (launches, devices, device_launches) of that store's two-node
+# repair under an 8x1 mesh: at 1 MiB blocks the 256 MiB stack budget cuts
+# each 16-stripe group of 24 reads into two windows of 8 (held by
+# tests/test_torch_dist.py against the reference on eight devices).
+SHARDED_EXPECTED = (7, 8, 56)
+# Phase 7b: the reference's replay of tests/data/correlated_trace.json on
+# a P5 store of 64 stripes, 48 nodes in 24 two-node domains, spread width
+# 16 (held by tests/test_torch_orchestration.py at 1 and 2 KiB blocks).
+REPLAY_EXPECTED = {
+    "nodes": [[7, 17], [4, 5], [3], [20, 21]],
+    "blocks_read": [773, 858, 444, 924],
+    "totals": {"blocks_read": 2999, "local_reads": 125, "remote_reads": 2874,
+               "scheduled_local": 125, "contiguous_local": 125,
+               "schedule_total": 2999, "blocks_relocated": 278,
+               "repairs_local": 138, "repairs_global": 46},
+    "rebalance": {"planned": 17, "moved": 17, "windows": 1,
+                  "imbalance_before": 5, "imbalance_after": 1}}
+# Then FailureInjector(store, seed=0).run(hours=40.0) on that store: the
+# failed nodes, the blocks each repair read and whether it stayed local.
+INJECTOR_EXPECTED = {"hours": 40.0, "nodes": [24, 12, 8],
+                     "blocks_read": [516, 470, 478],
+                     "local": [False, False, True]}
 
 
 def fail(msg: str) -> None:
@@ -430,6 +475,9 @@ def main() -> None:
                 check(by_path["gf256_matmul_batched"]["serve"] > 0,
                       "gf256_matmul_batched was never launched on the "
                       "serving path")
+                # ---------- 7a. the gf store's repair split over a mesh
+                sharded = sharded_phase(np, torch, store, workdir, hashes,
+                                        dev, wrappers, by_path)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         gf_hashes = gf_hashes or hashes
@@ -456,6 +504,16 @@ def main() -> None:
                           gf_report["repair_3_4"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    # ------------------------- 7b. trace replay, injector, rebalancer
+    workdir = Path(tempfile.mkdtemp(prefix="replay-", dir=ROOT / "_smoke"))
+    try:
+        replay = replay_phase(np, torch, dev, workdir, wrappers, by_path)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[phase 7] 7a {sharded['phase_seconds']} s, 7b "
+          f"{replay['phase_seconds']} s, in all "
+          f"{sharded['phase_seconds'] + replay['phase_seconds']} s")
 
     s, m, k = big
     kms, pms, bms, by, dms = timings[big]
@@ -714,7 +772,8 @@ def bit_kernel_phase(np, torch, rng, dev, windows, parity,
           f"{rows['mod2_matmul_encode_batched']['ms']:.4f} ms (mxu) in the "
           f"kernel")
     print(f"[kernel] bit-plane: {sweep} sweep shapes, {len(windows) + 1} "
-          f"main-path shapes and {len(BIT_PATH_SHAPES)} checkpoint shapes "
+          f"main-path shapes and {len(BIT_PATH_SHAPES)} checkpoint and "
+          f"sharded shapes "
           f"byte-equal to the plain versions, the mod-2 "
           f"kernel equal to the select-and-XOR kernel at each; no single "
           f"PyTorch call computes a GF(2) bit-plane product with repack, so "
@@ -746,9 +805,12 @@ GF_PATH_SHAPES = (("serve", 1, 1, 12, 1 << 20), ("save", 32, 4, 8, 1 << 18),
                   ("restore", 32, 2, 8, 1 << 18),
                   ("repair", 32, 2, 5, 1 << 18), ("sim", 1, 4, 24, 2048),
                   ("sim", 1, 1, 12, 2048))
-# (path, S, m, k, P) of phase 5's crs and mxu encode windows: 791 stripes of
-# the 2-layer state, 32 a window, P = 256 KiB / 8.
-BIT_PATH_SHAPES = (("save", 32, 4, 8, 1 << 15), ("save", 23, 4, 8, 1 << 15))
+# (path, S, m, k, P) of the crs and mxu kernels' launches off the repair
+# windows: phase 5's encode windows (791 stripes of the 2-layer state, 32 a
+# window, P = 256 KiB / 8) and one shard of phase 7a's two-node window (16
+# stripes split 8 ways, P = 1 MiB / 8).
+BIT_PATH_SHAPES = (("save", 32, 4, 8, 1 << 15), ("save", 23, 4, 8, 1 << 15),
+                   ("sharded", 2, 2, 24, 1 << 17))
 
 
 def gf_windows(cfg) -> list[tuple[int, int, int]]:
@@ -1606,6 +1668,272 @@ def reliability_phase(np, torch, dev, workdir: Path, by_path: dict,
           f"{doc['sim_over_closed_form']}")
     out["phase_seconds"] = time.perf_counter() - t_phase
     print(f"[sim] phase 6 in {out['phase_seconds']} s")
+    return out
+
+
+# ------------------------------------- phase 7: sharding and orchestration
+SHARDED_MESH = (8, 1)                   # 7a: eight positions of the card
+SHARDED_WINDOW = 16                     # 7a: stripes of the crs/mxu window
+TRACE = ROOT / "tests" / "data" / "correlated_trace.json"
+REPLAY_CLI = ("--replay", "tests/data/correlated_trace.json", "--nodes",
+              "24", "--domains", "12", "--schedule", "global",
+              "--destinations", "topology", "--rebalance")
+
+
+def sharded_phase(np, torch, store, workdir: Path, hashes: dict, dev,
+                  wrappers: dict, by_path: dict) -> dict:
+    """Phase 7a on phase 3's gf store, every node up: the two-node repair
+    under an 8x1 mesh of the card's positions (the failed nodes' block
+    files emptied first; they must hash as sealed after it), then the
+    two-node plan of stripe 0 on a 16-stripe window of the store's blocks
+    through crs and mxu engines split 8 ways, each byte-equal to its
+    unsharded call on the card (made before the counts are set to 0: a
+    comparison). The wrappers' counts of this run go to
+    ``by_path[name]["sharded"]``. Then the gf window's time through the
+    engine unsharded and split, and one shard's launch beside its
+    bound. On the CPU (a rehearsal) no wrapper counts."""
+    from repro_torch.core.engine import BatchedCodecEngine
+    from repro_torch.dist import make_mesh, with_rules
+    from repro_torch.ftx import repair_failed_nodes
+    from repro_torch.kernels import gf256_matmul as gm
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    nodes = (3, 4)
+    mesh = make_mesh(SHARDED_MESH, ("data", "model"),
+                     devices=(dev,) * math.prod(SHARDED_MESH))
+    failed = [b for b, n in enumerate(store.stripes[0].node_of_block)
+              if n in nodes]
+    plan = store.codec.planner.multi_plan(failed)
+    window = np.stack([np.stack([np.fromfile(store._block_path(sid, b),
+                                             np.uint8) for b in plan.reads])
+                       for sid in range(SHARDED_WINDOW)])
+    bit = {backend: BatchedCodecEngine(store.scheme, backend=backend,
+                                       device=dev)
+           for backend in ("crs", "mxu")}
+    want = {backend: eng.execute(plan, window) for backend, eng in
+            bit.items()}
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
+    rebuilt = [workdir / p for p in hashes
+               if int(Path(p).parent.name[4:]) in nodes]
+    for p in rebuilt:
+        p.write_bytes(b"")
+    with with_rules(mesh) as mr:
+        rep = repair_failed_nodes(store, list(nodes), device=dev)
+        got = {backend: eng.execute(plan, window, mr)
+               for backend, eng in bit.items()}
+        spans = {backend: eng.last_span for backend, eng in bit.items()}
+    for fns in wrappers.values():
+        for fn in fns:
+            by_path[fn.__name__]["sharded"] = fn.launches
+    counts = {fn.__name__: fn.launches for fns in wrappers.values()
+              for fn in fns}
+    check((rep.patterns, rep.blocks_read, rep.repairs_local,
+           rep.repairs_global) == EXPECTED[nodes]
+          and (rep.launches, rep.devices, rep.device_launches)
+          == SHARDED_EXPECTED
+          and rep.effective_backend == ("gf" if on_card else "ref"),
+          f"sharded repair {nodes}: counts differ from the reference: {rep}")
+    bad = [p.name for p in rebuilt
+           if sha(p) != hashes[str(p.relative_to(workdir))]]
+    check(not bad, f"sharded repair {nodes}: rebuilt blocks differ: "
+          f"{bad[:5]}")
+    check(not on_card or counts["gf256_matmul_batched"]
+          == rep.device_launches,
+          f"sharded repair: gf256_matmul_batched launched "
+          f"{counts['gf256_matmul_batched']} times for "
+          f"{rep.device_launches} device launches")
+    span = math.prod(SHARDED_MESH)
+    for backend, name in (("crs", "bitmatrix_encode_batched"),
+                          ("mxu", "mod2_matmul_encode_batched")):
+        check(spans[backend] == span and counts[name] == span * on_card
+              and torch.equal(got[backend], want[backend]),
+              f"sharded {backend} execute: span {spans[backend]}, "
+              f"{counts[name]} launches of {name}, or bytes differ from "
+              f"the unsharded call")
+        # Held to the blocks' sealed bytes too: the unsharded call is the
+        # same kernel, and phase 2b holds it to its plain version at this
+        # shard's launch shape (BIT_PATH_SHAPES' "sharded" row).
+        sealed = {Path(p).name: h for p, h in hashes.items()}
+        wrong = [(sid, t) for sid in range(SHARDED_WINDOW)
+                 for i, t in enumerate(plan.targets)
+                 if hashlib.sha256(got[backend][sid, i].cpu().numpy()
+                                   .tobytes()).hexdigest()
+                 != sealed[store._block_path(sid, t).name]]
+        check(not wrong, f"sharded {backend} execute: (stripe, block) "
+              f"{wrong[:5]} differ from their sealed bytes")
+    for name in ("gf256_matmul_batched", "bitmatrix_encode_batched",
+                 "mod2_matmul_encode_batched"):
+        check(not on_card or counts[name] > 0, f"{name} was never launched "
+              f"on the sharded path")
+    # The gf window through the engine on the card, one launch and split
+    # eight ways, and one shard's launch (S = 16 / 8) beside its bound.
+    stack = torch.from_numpy(window).to(dev)
+    gf = BatchedCodecEngine(store.scheme, backend="gf", device=dev)
+    whole_ms = cuda_ms(torch, lambda: gf.execute(plan, stack), 10)
+    with with_rules(mesh) as mr:
+        split_ms = cuda_ms(torch, lambda: gf.execute(plan, stack, mr), 10)
+    coef = torch.from_numpy(plan.coeffs).to(dev)
+    shard = stack[:SHARDED_WINDOW // span].contiguous()
+    shard_ms = cuda_ms(torch, lambda: gm.gf256_matmul_batched(coef, shard),
+                       10)
+    shard_dev = device_ms(torch, gm.gf256_matmul_batched, (coef, shard))
+    m, k = plan.coeffs.shape
+    bound, by = bound_ms(shard.shape[0], m, k, shard.shape[2])
+    out = {"repair": {f: getattr(rep, f) for f in (
+               "stripes_repaired", "patterns", "launches", "devices",
+               "device_launches", "blocks_read", "repairs_local",
+               "repairs_global", "wall_seconds", "read_seconds",
+               "compute_seconds", "write_seconds")},
+           "launches": counts, "window_ms": whole_ms,
+           "window_split_ms": split_ms, "shard_ms": shard_ms,
+           "shard_device_ms": shard_dev, "shard_bound_ms": bound,
+           "shard_bound_by": by,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print(f"[sharded] repair_failed_nodes{list(nodes)} under a "
+          f"{SHARDED_MESH[0]}x{SHARDED_MESH[1]} mesh of {dev}: "
+          + json.dumps(out["repair"]) + f"; {len(rebuilt)} emptied block "
+          f"files rebuilt byte-equal; crs and mxu two-node window "
+          f"(S={SHARDED_WINDOW}, m={m}, k={k}) split {span} ways "
+          f"byte-equal to the unsharded call; kernel launches "
+          + json.dumps(counts))
+    print(f"[sharded] gf window S={SHARDED_WINDOW} m={m} k={k} "
+          f"B={shard.shape[2]} through the engine on {dev}: one launch "
+          f"{whole_ms:.4f} ms, split {span} ways {split_ms:.4f} ms; one "
+          f"shard's launch (S={shard.shape[0]}) {shard_ms:.4f} ms (device "
+          f"{shard_dev:.4f} ms), bound {bound:.4f} ms ({by})")
+    print(f"[sharded] phase 7a in {out['phase_seconds']} s")
+    return out
+
+
+def replay_phase(np, torch, dev, workdir: Path, wrappers: dict,
+                 by_path: dict, block_size: int = 1 << 20) -> dict:
+    """Phase 7b: a P5 store at 1 MiB blocks on gf (64 stripes, 48 nodes in
+    24 two-node domains, spread width 16, topology seed 7) replays the
+    committed failure trace with the global schedule, topology-chosen
+    destinations, the failed nodes left down and a rebalance pass; then
+    ``FailureInjector(store, seed=0)`` fails and repairs three nodes. Every
+    node the store fails loses its block files. Every count must be the
+    reference's, every block file must hash as sealed and the payload must
+    come back; the wrappers' counts go to ``by_path[name]["replay"]``.
+    Last, the replay command line runs twice on the card and once on the
+    host, and must print the same bytes each time. On the CPU (the tests'
+    rehearsal, at a small ``block_size``) every run is on the host and no
+    wrapper counts."""
+    from repro_torch.dist.topology import Topology
+    from repro_torch.ftx import (FailureInjector, RepairOptions, StoreConfig,
+                                 StripeStore, replay_trace)
+    from repro_torch.ftx.events import load_trace
+
+    t_phase = time.perf_counter()
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
+    cfg = StoreConfig(scheme="cp-azure", k=24, r=2, p=2,
+                      block_size=block_size, placement_policy="spread")
+    check(dev.type != "cuda" or cfg.backend == "gf",
+          f"replay store backend {cfg.backend!r} on the card")
+    store = StripeStore(workdir / "replay", cfg, num_nodes=48,
+                        topology=Topology(num_nodes=48, num_domains=24,
+                                          spread_width=16, seed=7),
+                        device=dev)
+    blob = payload(np, STRIPES, STRIPES * cfg.k * cfg.block_size)
+    t0 = time.perf_counter()
+    store.put("blob", blob)
+    store.seal()
+    seal_s = time.perf_counter() - t0
+    check(len(store.stripes) == STRIPES, f"{len(store.stripes)} stripes")
+    sealed = {(sid, b): sha(store._block_path(sid, b))
+              for sid in store.stripes for b in range(store.n)}
+
+    def intact(label):
+        up = {n for n, st in store.nodes.items() if st.name == "UP"}
+        bad = [key for key, h in sealed.items()
+               if sha(store._block_path(*key)) != h]
+        check(not bad, f"{label}: block files differ from the sealed "
+              f"ones: {bad[:5]}")
+        check(all(n in up for st in store.stripes.values()
+                  for n in st.node_of_block),
+              f"{label}: a block is still addressed to a down node")
+        check((store.get("blob") == blob).all(),
+              f"{label}: get('blob') differs from the payload")
+
+    want = REPLAY_EXPECTED
+    with losing_disks(StripeStore) as lost:
+        t0 = time.perf_counter()
+        res = replay_trace(store, load_trace(TRACE), options=RepairOptions(
+            schedule="global", destinations="topology"), revive=False,
+            rebalance_after=True)
+        replay_s = time.perf_counter() - t0
+    rows, rebal = res["batches"], dict(res["rebalance"])
+    check([r["nodes"] for r in rows] == want["nodes"]
+          and [r["blocks_read"] for r in rows] == want["blocks_read"]
+          and {k: res["totals"][k] for k in want["totals"]}
+          == want["totals"]
+          and rebal.pop("bytes_moved") == rebal["moved"] * cfg.block_size
+          and rebal == want["rebalance"],
+          f"replay counts differ from the reference: {res['totals']}, "
+          f"{res['rebalance']}")
+    check(len(lost) > 0, "the replay emptied no block file")
+    intact("replay")
+    inj_want = INJECTOR_EXPECTED
+    with losing_disks(StripeStore) as lost_inj:
+        t0 = time.perf_counter()
+        inj = FailureInjector(store, seed=0)
+        inj.run(hours=inj_want["hours"])
+        inj_s = time.perf_counter() - t0
+    got = [(e.unit, e.blocks_read, e.local) for e in inj.repairs()]
+    check([e.node for e in inj.failures()] == inj_want["nodes"]
+          and got == list(zip(inj_want["nodes"], inj_want["blocks_read"],
+                              inj_want["local"])),
+          f"injector repairs differ from the reference: {got}")
+    intact("injector")
+    for fns in wrappers.values():
+        for fn in fns:
+            by_path[fn.__name__]["replay"] = fn.launches
+    counts = {fn.__name__: fn.launches for fn in wrappers["gf"]}
+    for name, n in counts.items():
+        check(dev.type != "cuda" or n > 0,
+              f"{name} was never launched on the replay path")
+    # The command line: twice on the card and once on the host.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs, cli_s = [], []
+    for i, device in enumerate((dev.type, dev.type, "cpu")):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.simulate", *REPLAY_CLI,
+             "--device", device, "--replay-store", str(workdir / f"cli{i}")],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+        cli_s.append(time.perf_counter() - t0)
+        check(run.returncode == 0, f"repro_torch.launch.simulate --replay "
+              f"exited {run.returncode}: {run.stderr[-2000:]}")
+        outs.append(run.stdout)
+    check(outs[0] == outs[1] == outs[2], "the replay command line printed "
+          "different JSON on a second run or on the host")
+    doc = json.loads(outs[0])
+    out = {"seal_seconds": seal_s, "replay_seconds": replay_s,
+           "injector_seconds": inj_s, "cli_seconds": cli_s,
+           "totals": res["totals"], "rebalance": res["rebalance"],
+           "emptied_files": len(lost) + len(lost_inj), "launches": counts,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print(f"[replay] P5 store on {dev}: sealed {STRIPES} stripes in "
+          f"{seal_s} s; replay_trace of {TRACE.name} in {replay_s} s: "
+          + json.dumps({"batches": [[r["nodes"], r["blocks_read"],
+                                     r["sim_seconds"]] for r in rows],
+                        "totals": res["totals"],
+                        "rebalance": res["rebalance"]})
+          + f"; FailureInjector(seed=0).run({inj_want['hours']}) in "
+          f"{inj_s} s: {got}; {out['emptied_files']} emptied block files "
+          f"rebuilt or moved byte-equal, get('blob') equal to the payload; "
+          f"kernel launches " + json.dumps(counts))
+    print(f"[replay] repro_torch.launch.simulate {' '.join(REPLAY_CLI)}: "
+          f"exit 0 twice on {dev.type} ({cli_s[0]} s, {cli_s[1]} s) and "
+          f"once on the host ({cli_s[2]} s), the same JSON each time: "
+          f"{len(doc['batches'])} batches, totals "
+          + json.dumps(doc["totals"]))
+    print(f"[replay] phase 7b in {out['phase_seconds']} s")
     return out
 
 

@@ -15,6 +15,12 @@ pass ragged last batches of any size, including S=1.
 Availability can be given either as a dense ``(S, n, B)`` tensor/array or
 as a mapping ``block-id -> (S, B)`` holding only surviving blocks; both
 gather to the plan's read order on the engine's device before the launch.
+
+Passing :class:`~repro_torch.dist.sharding.MeshRules` (at construction or
+per call) shards the stripe axis over the mesh's data axes — one launch
+per device slice via ``repro_torch.dist.stripes`` — with bit-identical
+results; ``last_span`` reports how many devices the most recent launch
+spread over.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import MeshRules
-from repro_torch.dist.stripes import stripe_span
+from repro_torch.dist.stripes import ShardedBatch, stripe_span
 from repro_torch.kernels.ops import (BIT_BACKENDS, as_u8, default_backend,
                                      effective_backend, encode_batch_op,
                                      gf_matmul_batch_op, require_backend)
@@ -101,21 +107,31 @@ class BatchedCodecEngine:
 
         The zero-copy entry point for callers that materialize the read
         stack themselves. ``stacked`` may be a host numpy array (the stripe
-        store's gather), which moves to the engine's device, or a tensor.
-        Returns the ``(S, |targets|, B)`` result on the engine's device.
+        store's single-shard gather), a tensor, or a
+        :class:`~repro_torch.dist.stripes.ShardedBatch` built per device
+        shard (``repro_torch.dist.placement.assemble_shards``), which is
+        consumed where its shards lie — never bounced through one device.
+        A batch the mesh does not split moves to the engine's device
+        before the timer starts; a split one is scattered slice by slice
+        by the launch. Returns the ``(S, |targets|, B)`` result on the
+        engine's device.
         """
-        stacked = as_u8(stacked, self.device)
+        if not isinstance(stacked, (torch.Tensor, ShardedBatch)):
+            stacked = np.ascontiguousarray(stacked, np.uint8)
         if stacked.ndim != 3 or stacked.shape[1] != len(plan.reads):
             raise ValueError(f"expected (S, {len(plan.reads)}, B) stack for "
                              f"plan reads {plan.reads}, got "
                              f"{tuple(stacked.shape)}")
         mr = self._rules(mesh_rules)
         self.last_span = stripe_span(stacked.shape, mr)
+        if self.last_span <= 1 and not isinstance(stacked, ShardedBatch):
+            stacked = as_u8(stacked, self.device)
         self.effective_backend = effective_backend(self.backend, self.device)
         bitmatrix = self._bits(plan)
         t0 = time.perf_counter()
         out = gf_matmul_batch_op(plan.coeffs, stacked, backend=self.backend,
-                                 bitmatrix=bitmatrix, mesh_rules=mr)
+                                 device=self.device, bitmatrix=bitmatrix,
+                                 mesh_rules=mr)
         self._sync()
         self.last_exec_seconds = time.perf_counter() - t0
         return out
@@ -128,7 +144,8 @@ class BatchedCodecEngine:
     # ------------------------------------------------------------- encoding
     def encode(self, data, mesh_rules: Optional[MeshRules] = None
                ) -> torch.Tensor:
-        """(S, k, B) data -> (S, n, B) systematic stripes, one launch."""
+        """(S, k, B) data -> (S, n, B) systematic stripes, one launch (one
+        per device slice under a mesh)."""
         data = as_u8(data, self.device)
         if data.ndim != 3 or data.shape[1] != self.scheme.k:
             raise ValueError(f"expected (S, {self.scheme.k}, B) data, got "
@@ -157,7 +174,7 @@ class BatchedCodecEngine:
 
         Returns ``{block -> (S, B)}``; the cascade is pre-flattened by the
         planner so there is exactly one kernel launch regardless of how many
-        blocks the pattern repairs.
+        blocks the pattern repairs — one per device when sharded.
         """
         plan = self.planner.multi_plan(failed)
         out = self._execute(plan, available, mesh_rules)

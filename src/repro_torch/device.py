@@ -7,6 +7,7 @@ CUDA they raise instead of quietly running the plain PyTorch versions.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+def as_u8(x, device: str | torch.device | None = None) -> torch.Tensor:
+    """``x`` (tensor or array-like) as a contiguous uint8 tensor on
+    ``device``; a tensor stays where it is when ``device`` is None, and
+    host data then goes to the card (``resolve_device``)."""
+    if isinstance(x, torch.Tensor):
+        dev = x.device if device is None else torch.device(device)
+    else:
+        arr = np.ascontiguousarray(x, np.uint8)
+        x = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        dev = resolve_device("cuda" if device is None else device)
+    return x.to(dev, torch.uint8).contiguous()

@@ -1,16 +1,18 @@
 """Distribution layer: placement, topology, stripe scheduling and spans.
 
-``placement`` maps (stripe, block) -> (node, shard) with a local/remote
-read cost model and owns the gather geometry; ``topology`` generates
-placements from failure domains and policies; ``schedule`` assigns a
-repair chunk's stripes to device shards; ``sharding``/``stripes`` resolve
-the stripe axis onto a mesh. This slice runs on one card: multi-device
-meshes raise ``NotImplementedError``.
+``sharding`` names device meshes and resolves logical axes onto them;
+``stripes`` shards the stripe axis ``S`` of ``(S, k, B)`` batches over the
+mesh's data-parallel axes, one launch per device slice; ``placement`` maps
+(stripe, block) -> (node, shard) with a local/remote read cost model and
+owns the per-shard gather geometry (``plan_gather``/``assemble_shards``);
+``topology`` generates placements from failure domains and policies;
+``schedule`` assigns a repair chunk's stripes to device shards.
 """
 from .placement import (  # noqa: F401
     GatherShard,
     PlacementMap,
     ShardSlice,
+    assemble_shards,
     block_loads,
     plan_gather,
     shard_layout,
@@ -25,13 +27,17 @@ from .sharding import (  # noqa: F401
     Mesh,
     MeshRules,
     current_rules,
+    make_mesh,
     with_rules,
 )
 from .stripes import (  # noqa: F401
+    ShardedBatch,
     align_stripe_window,
     sharded_launch,
     stripe_axis_span,
+    stripe_sharding,
     stripe_span,
+    stripe_spec,
 )
 from .topology import (  # noqa: F401
     POLICIES,

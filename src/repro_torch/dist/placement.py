@@ -9,12 +9,16 @@ reads that cross shards pay a configurable ``remote_multiplier`` on the
 simulated link time (the same accounting XORing Elephants does for
 cross-rack repair traffic).
 
-The second half of the module is the gather geometry shared by the stripe
-store and the repair pipeline: :func:`shard_layout` and :func:`plan_gather`
-turn an ``(S, ...)`` batch shape into the host buffers the gather fills.
-This slice runs on one card, so every batch gathers into one buffer
-attributed to shard 0; assembling per-device shards is in ROADMAP queue
-1 (multi-device dist).
+The second half of the module is the sharded-gather geometry shared by the
+stripe store and the repair pipeline: :func:`plan_gather` turns an
+``(S, ...)`` batch shape plus :class:`~repro_torch.dist.sharding.MeshRules`
+into one host buffer per device slice of the mesh's stripe axis
+(:func:`~repro_torch.dist.stripes.shard_layout`), and
+:func:`assemble_shards` moves each buffer straight onto its slice's device
+— no single-host ``(S, |reads|, B)`` stack and no device-0 bounce exist on
+the path. Window alignment (``dist.stripes.align_stripe_window``) and this
+layout agree by construction: an aligned window always yields ``span``
+equal slices of ``S / span`` stripes in global stripe order.
 """
 from __future__ import annotations
 
@@ -23,8 +27,10 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.device import as_u8
+
 from .sharding import MeshRules
-from .stripes import stripe_span
+from .stripes import ShardedBatch, ShardSlice, shard_layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,33 +130,6 @@ def block_loads(placements, num_nodes: int) -> dict[int, int]:
     return loads
 
 
-@dataclasses.dataclass(frozen=True)
-class ShardSlice:
-    """One device shard's contiguous stripe range of an ``(S, ...)`` batch."""
-    index: int
-    lo: int
-    hi: int
-    devices: tuple
-
-    @property
-    def size(self) -> int:
-        return self.hi - self.lo
-
-
-def shard_layout(shape: Sequence[int], mr: Optional[MeshRules]
-                 ) -> Optional[list[ShardSlice]]:
-    """Per-device stripe slices for an ``(S, ...)`` batch, global order.
-
-    ``None`` when the batch stays on a single device — always, in this
-    slice; a batch that would spread over several devices raises
-    ``NotImplementedError``.
-    """
-    if mr is None or stripe_span(tuple(shape), mr) <= 1:
-        return None
-    raise NotImplementedError("multi-device gathers come in a later slice "
-                              "(ROADMAP)")
-
-
 @dataclasses.dataclass
 class GatherShard:
     """One shard's gather work item: fill ``buf`` with stripes
@@ -166,13 +145,55 @@ def plan_gather(shape: Sequence[int], mr: Optional[MeshRules], placement
                 ) -> tuple[Optional[list[ShardSlice]], list[GatherShard]]:
     """Shared gather geometry for the stripe store and the repair pipeline.
 
-    Returns ``(layout, parts)``: the :func:`shard_layout` result (None on
-    one device) and one :class:`GatherShard` per buffer. A single-device
-    batch gets one full-shape ``uint8`` buffer attributed to shard 0 — the
-    single-host gather, charged the same way on the synchronous and
-    pipelined paths. ``placement`` attributes reads of a multi-device
-    layout, which this slice does not build.
+    Args:
+        shape: the batched ``(S, |reads|, B)`` gather shape.
+        mr: active mesh + rules, or ``None``.
+        placement: the active :class:`PlacementMap` (attributes each
+            shard's reads), or ``None`` to attribute device shard *i* to
+            host shard *i* directly.
+
+    Returns:
+        ``(layout, parts)``: the :func:`shard_layout` result plus one
+        :class:`GatherShard` per buffer — preallocated ``uint8`` host
+        buffers with their stripe ranges and reader-shard attribution. A
+        degraded batch (``layout is None``) gets one full-shape buffer
+        attributed to shard 0 — the single-host gather, charged
+        consistently on both the synchronous and pipelined paths. Sharded
+        batches map device shard *i* onto the placement's host shards
+        contiguously (``PlacementMap.reader_shard``), the same
+        stripe->device order the layout itself uses.
     """
     shape = tuple(shape)
     layout = shard_layout(shape, mr)
-    return layout, [GatherShard(0, shape[0], 0, np.empty(shape, np.uint8))]
+    if layout is None:
+        return None, [GatherShard(0, shape[0], 0,
+                                  np.empty(shape, np.uint8))]
+    span = len(layout)
+    parts = [GatherShard(
+        sl.lo, sl.hi,
+        placement.reader_shard(sl.index, span) if placement is not None
+        else sl.index,
+        np.empty((sl.size,) + shape[1:], np.uint8), sl) for sl in layout]
+    return layout, parts
+
+
+def assemble_shards(shape: Sequence[int], mr: MeshRules,
+                    layout: Sequence[ShardSlice],
+                    bufs: Sequence[np.ndarray]) -> ShardedBatch:
+    """Per-shard host buffers -> one sharded batch, no host stack.
+
+    Args:
+        shape: the global ``(S, ...)`` shape being assembled.
+        mr: active mesh + rules (must be the ones ``layout`` derives from).
+        layout: the :func:`shard_layout` slices, in slice order.
+        bufs: one host ``(slice.size, ...)`` buffer per slice, same order.
+
+    Returns:
+        A :class:`~repro_torch.dist.stripes.ShardedBatch` whose shards lie
+        on their slices' first devices, each copied there on its own;
+        ``sharded_launch`` consumes it with no second copy. A slice that
+        other mesh axes replicate is copied once: the launch computes it
+        once.
+    """
+    return ShardedBatch(tuple(shape), tuple(layout), tuple(
+        as_u8(buf, sl.devices[0]) for sl, buf in zip(layout, bufs)))

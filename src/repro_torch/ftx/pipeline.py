@@ -15,14 +15,18 @@ This module overlaps the three stages with a classic double buffer over
   ``StoreConfig.pipeline_window`` stripes (capped by ``batch_stripes`` and
   the gathered-stack byte budget, and rounded to the mesh's stripe-axis
   device span so sharded launches keep their full parallelism);
-* window *i+1*'s surviving blocks prefetch through a
-  ``prefetch_threads``-wide reader pool into one host buffer. Every read
-  still goes through ``StripeStore._read_block`` — node liveness and the
-  simulated per-node latency/bandwidth model apply unchanged, with the
-  ``PlacementMap`` charging cross-shard reads at the configured remote
-  multiplier — while window *i* moves to the card and runs through
-  ``BatchedCodecEngine.execute`` (per-shard pools and buffers for a
-  multi-device mesh are a later slice);
+* window *i+1*'s surviving blocks prefetch through *per-shard* reader
+  pools: under a sharded mesh each device shard gets its own
+  ``prefetch_threads``-wide pool — modelling each host's independent
+  disks/NIC — filling its own host buffer with only the blocks its stripes
+  need, copied onto the shard's device via
+  ``repro_torch.dist.placement.assemble_shards`` (no single-host stack).
+  Every read still goes through ``StripeStore._read_block`` — node
+  liveness and the simulated per-node latency/bandwidth model apply
+  unchanged, with the ``PlacementMap`` charging cross-shard reads at the
+  configured remote multiplier — while window *i* runs through
+  ``BatchedCodecEngine.execute`` (no second copy of the pre-sharded
+  batch);
 * write-back of window *i*'s rebuilt blocks happens on a dedicated writer
   thread, overlapped with the launch of window *i+1*.
 
@@ -64,7 +68,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.dist.placement import plan_gather
+from repro_torch.dist.placement import assemble_shards, plan_gather
 from repro_torch.dist.schedule import schedule_group
 from repro_torch.dist.stripes import align_stripe_window, stripe_axis_span
 
@@ -273,9 +277,10 @@ class RepairPipeline:
                       futures, t0)
 
     def _collect(self, fetch: _Fetch, res: PipelineResult):
-        """Wait out a prefetch. Returns the batch — the window's host
-        stack — or None when node deaths invalidated it (the window must
-        re-plan). Non-I/O errors raise."""
+        """Wait out a prefetch. Returns the batch — a host stack for
+        degraded windows, or the sharded batch assembled from the
+        per-shard buffers — or None when node deaths invalidated it (the
+        window must re-plan). Non-I/O errors raise."""
         wait(fetch.futures)
         t1 = time.perf_counter()
         self._span(res, "read", fetch.window.index, fetch.t_submit, t1)
@@ -290,7 +295,10 @@ class RepairPipeline:
                 raise err
         if io_failed:
             return None
-        return fetch.bufs[0]
+        if fetch.layout is None:
+            return fetch.bufs[0]
+        return assemble_shards(fetch.shape, self.mesh_rules, fetch.layout,
+                               fetch.bufs)
 
     def _launch(self, win: RepairWindow, stacked,
                 res: PipelineResult) -> dict[int, np.ndarray]:

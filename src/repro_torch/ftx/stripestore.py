@@ -34,7 +34,8 @@ from repro_torch.core.repair import (MultiRepairPlan, multi_repair_plan,
                                      single_repair_plan)
 from repro_torch.core.schemes import make_scheme
 from repro_torch.device import resolve_device
-from repro_torch.dist.placement import PlacementMap, block_loads, plan_gather
+from repro_torch.dist.placement import (PlacementMap, assemble_shards,
+                                       block_loads, plan_gather)
 from repro_torch.dist.schedule import schedule_group
 from repro_torch.dist.sharding import current_rules
 from repro_torch.dist.stripes import stripe_axis_span
@@ -773,9 +774,9 @@ class StripeStore:
         placement, and simulated latency (the latency model re-draws from
         the same seed, so the original prefix is bit-identical), and the
         new topology drives all future placement, gather sharding, and
-        destination selection. Existing stripes are *not* moved: the
-        rebalancer that smooths load onto the new capacity
-        (``ftx/rebalance.py``) comes with a later slice.
+        destination selection. Existing stripes are *not* moved — run the
+        rebalancer (``repro_torch.ftx.rebalance``) to smooth load onto the
+        new capacity.
 
         Returns the newly added node ids (empty when only the domain
         geometry changed).
@@ -823,10 +824,10 @@ class StripeStore:
         (see ``repro_torch.ftx.pipeline.PipelineHook``) used by the failure-
         injection tests.
 
-        ``mesh_rules`` (or an ambient ``with_rules`` context) names the
-        mesh the stripe axis resolves onto; this slice runs single-device
-        meshes only, so every launch spans one device. Telemetry reports
-        ``devices`` (widest device span seen) and ``device_launches`` (total
+        ``mesh_rules`` (or an ambient ``with_rules`` context) shards each
+        launch's stripe axis over the mesh's data axes: one launch per
+        device slice of each pattern chunk. Telemetry reports ``devices``
+        (widest device span seen) and ``device_launches`` (total
         per-device kernel executions across all launches).
         ``read/compute/write_seconds``
         report per-stage wall spans; ``overlap_seconds`` is the stage time
@@ -834,9 +835,11 @@ class StripeStore:
 
         ``placement`` (a ``repro_torch.dist.placement.PlacementMap``; defaults to
         the store's, else one derived from the node->shard default for the
-        mesh's stripe-axis span) attributes the gather: every read of the
-        batched ``(S, |reads|, B)`` input is charged local or remote
-        against the placement's locality cost model
+        mesh's stripe-axis span) drives the *sharded gather*: each device
+        shard's slice of the batched ``(S, |reads|, B)`` input is filled
+        into its own host buffer and copied directly onto that shard's
+        device — no single-host stack exists — and every read is charged
+        local or remote against the placement's locality cost model
         (``local_reads``/``remote_reads``/``gather_bytes_per_shard``).
 
         ``schedule`` (default ``cfg.stripe_schedule``) picks the stripe ->
@@ -1064,28 +1067,39 @@ class StripeStore:
 
     def _gather_group(self, sids: list[int], reads: tuple[int, ...],
                       mesh_rules, placement):
-        """Gather surviving blocks for a stripe group into one host
-        ``(S, |reads|, B)`` buffer (attributed to gather shard 0; the
-        per-device split is a later slice). Every read is charged
-        local/remote against ``placement``.
+        """Gather surviving blocks for a stripe group, shard by shard.
+
+        Under a sharded mesh each device shard's slice of the batched
+        ``(S, |reads|, B)`` input fills its *own* host buffer — only the
+        blocks the shard's stripes need — and each buffer moves straight
+        onto its shard's device
+        (``repro_torch.dist.placement.assemble_shards``). No single-host
+        stack of the full batch exists. Degraded/single-device launches
+        keep the one-buffer fast path (attributed to gather shard 0).
+        Every read is charged local/remote against ``placement``.
         """
         shape = (len(sids), len(reads), self.cfg.block_size)
-        _, parts = plan_gather(shape, mesh_rules, placement)
+        layout, parts = plan_gather(shape, mesh_rules, placement)
         for part in parts:
             for i, sid in enumerate(sids[part.lo:part.hi]):
                 for j, b in enumerate(reads):
                     part.buf[i, j] = self._read_block(
                         sid, b, shard=part.shard, placement=placement)
-        return parts[0].buf
+        if layout is None:
+            return parts[0].buf
+        return assemble_shards(shape, mesh_rules, layout,
+                               [p.buf for p in parts])
 
     def _repair_group(self, sids: list[int], down: frozenset[int],
                       compiled, spare_of: Optional[dict[int, int]],
                       mesh_rules=None, placement=None,
                       dest_of: Optional[dict[tuple[int, int], int]] = None
                       ) -> int:
-        """Batched repair of stripes sharing one failure pattern: gather
-        the (S, |reads|, B) input on the host, move it to the card and run
-        a single launch (no per-block intermediate copies). Stages run
+        """Batched repair of stripes sharing one failure pattern: per-shard
+        gathers land each device's slice of the (S, |reads|, B) input
+        straight on its shard (one host buffer per shard, no full-batch
+        stack) and run a single launch (one per device slice under
+        ``mesh_rules``; no per-block intermediate copies). Stages run
         strictly serial here — the span accounting makes that visible next
         to the pipelined path. Returns the device span of the launch."""
         t0 = time.perf_counter()

@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.gf import matrix_to_bitmatrix
-from repro_torch.dist.stripes import sharded_launch
-from repro_torch.device import resolve_device
+from repro_torch.dist.stripes import ShardedBatch, sharded_launch
+from repro_torch.device import as_u8
 
 from . import ref as ref_lib
 from .bitmatrix_encode import (bitmatrix_encode, bitmatrix_encode_batched,
@@ -62,19 +62,6 @@ def effective_backend(backend: str, device: str | torch.device = "cuda"
     if backend == "gf" and torch.device(device).type == "cpu":
         return "ref"
     return backend
-
-
-def as_u8(x, device: str | torch.device | None = None) -> torch.Tensor:
-    """``x`` (tensor or array-like) as a contiguous uint8 tensor on
-    ``device``; a tensor stays where it is when ``device`` is None, and
-    host data then goes to the card (``resolve_device``)."""
-    if isinstance(x, torch.Tensor):
-        dev = x.device if device is None else torch.device(device)
-    else:
-        arr = np.ascontiguousarray(x, np.uint8)
-        x = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
-        dev = resolve_device("cuda" if device is None else device)
-    return x.to(dev, torch.uint8).contiguous()
 
 
 def _pad_bytes(x: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -150,25 +137,30 @@ def gf_matmul_batch_op(coef, data, *, backend: str = "gf",
                        mesh_rules=None, bitmatrix=None) -> torch.Tensor:
     """Batched GF(2^8) ``coef (m,k) @ data (S,k,B) -> (S,m,B)``.
 
-    One launch for the whole stripe batch, for every backend: gf/ref run
-    the byte table product, crs/mxu the stripe-batched bit-plane kernels
-    on the coefficient matrix's packed GF(2) expansion (``bitmatrix=``
-    passes a precomputed one — the batched engine hands in its compiled
-    plan's cached expansion). A host numpy stack moves to ``device`` (the
-    card unless the caller asks for the CPU) first. ``mesh_rules`` goes
-    to :func:`~repro_torch.dist.stripes.sharded_launch`, which runs
-    single-device launches only in this slice.
+    One launch for the whole stripe batch — one per device slice under
+    ``mesh_rules`` (:func:`~repro_torch.dist.stripes.sharded_launch`) —
+    for every backend: gf/ref run the byte table product, crs/mxu the
+    stripe-batched bit-plane kernels on the coefficient matrix's packed
+    GF(2) expansion (``bitmatrix=`` passes a precomputed one — the
+    batched engine hands in its compiled plan's cached expansion).
+    ``data`` may be a host array, a tensor or a
+    :class:`~repro_torch.dist.stripes.ShardedBatch`. A batch that stays
+    on one device moves to ``device`` (the card unless the caller asks
+    for the CPU; where a tensor lies when None); a sharded one is
+    scattered slice by slice to its mesh's devices, and its result
+    lands on ``device`` (the first slice's when None).
     """
     require_backend(backend)
-    data = as_u8(data, device)
+    if not isinstance(data, (torch.Tensor, ShardedBatch)):
+        data = np.ascontiguousarray(data, np.uint8)
     if data.ndim != 3:
         raise ValueError(f"expected (S, k, B) data, got {tuple(data.shape)}")
-    coef = as_u8(coef, data.device)
+    coef = as_u8(coef, "cpu")
     if backend in BIT_BACKENDS:
         return sharded_launch(_bit_matmul_batch_kernel,
                               _as_bitmatrix(coef, bitmatrix), data,
-                              mesh_rules, backend=backend)
-    return sharded_launch(_gf_batch_kernel, coef, data, mesh_rules,
+                              mesh_rules, device, backend=backend)
+    return sharded_launch(_gf_batch_kernel, coef, data, mesh_rules, device,
                           backend=backend)
 
 
@@ -222,8 +214,8 @@ def encode_batch_op(coding: np.ndarray, blocks, *, backend: str = "gf",
         raise ValueError(f"expected (S, k, B) blocks, got "
                          f"{tuple(blocks.shape)}")
     return gf_matmul_batch_op(np.asarray(coding, np.uint8), blocks,
-                              backend=backend, mesh_rules=mesh_rules,
-                              bitmatrix=bitmatrix)
+                              backend=backend, device=blocks.device,
+                              mesh_rules=mesh_rules, bitmatrix=bitmatrix)
 
 
 def default_backend(fallback: str | None = None) -> str:

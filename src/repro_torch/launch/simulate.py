@@ -6,9 +6,11 @@ Markov-chain MTTDL for side-by-side comparison, ``--oracle`` re-runs the
 pure-Python reference loop and verifies the batched engine against it bit
 for bit (exit 1 on divergence), and ``--calibrate DIR`` first measures the
 real repair pipeline's effective bandwidth on a scratch store under DIR
-and feeds it into the failure model. The engine's selects and draws, the
-oracle's draws and the calibration store's kernels run on ``--device``:
-the card by default, ``--device cpu`` for the host.
+and feeds it into the failure model, and ``--replay TRACE.json`` drives a
+real store through a failure trace instead of simulating. The engine's
+selects and draws, the oracle's draws and the calibration and replay
+stores' kernels run on ``--device``: the card by default, ``--device cpu``
+for the host.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.simulate --scheme cp-azure \\
@@ -17,10 +19,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.simulate --scheme azure \\
       --k 4 --r 2 --p 1 --trials 50 --horizon-hours 2000 --oracle \\
       --events out.json --device cpu
-
-Replaying a failure trace against a live store (``--replay`` and its
-companion flags) waits for the port's orchestration modules (ROADMAP
-queue 1, item 6); those flags exit 2.
+  PYTHONPATH=src python -m repro_torch.launch.simulate \\
+      --replay tests/data/correlated_trace.json --nodes 24 --domains 12 \\
+      --policy spread --schedule global --destinations topology \\
+      --rebalance --device cpu
 """
 from __future__ import annotations
 
@@ -40,6 +42,68 @@ from repro_torch.ftx.events import to_doc
 from repro_torch.sim import (SimParams, UnitHierarchy, calibrated, simulate,
                              simulate_oracle)
 from repro_torch.sim.units import COST_MODELS, MODELS
+
+
+def _replay(args, device) -> int:
+    """``--replay``: drive a real store through a committed failure trace.
+
+    Builds a scratch :class:`~repro_torch.ftx.StripeStore` on ``device``
+    under the requested geometry, fills it with seeded deterministic
+    objects, and replays the trace through
+    :func:`repro_torch.ftx.failures.replay_trace` — correlated
+    same-timestamp failures repair as one batch, under the requested
+    orchestration knobs. The printed JSON carries only deterministic
+    fields (simulated time, block/read counts, relocations, rebalance
+    moves), so two runs over the same trace are byte-identical, and equal
+    to the reference command's.
+    """
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.ftx.events import load_trace
+    from repro_torch.ftx.failures import replay_trace
+    from repro_torch.ftx.options import RepairOptions
+    from repro_torch.ftx.stripestore import StoreConfig, StripeStore
+
+    nodes = args.nodes or 24
+    topo = Topology(num_nodes=nodes, num_domains=args.domains, seed=args.seed)
+    cfg = StoreConfig(scheme=args.scheme, k=args.k, r=args.r, p=args.p,
+                      block_size=1024, batch_stripes=8,
+                      placement_policy=args.policy, seed=args.seed)
+    with tempfile.TemporaryDirectory() as scratch:
+        root = args.replay_store or scratch
+        store = StripeStore(Path(root) / "replay_store", cfg,
+                            num_nodes=nodes, topology=topo, device=device)
+        rng = np.random.default_rng(args.seed)
+        for i in range(12):
+            store.put(f"obj{i}", rng.integers(
+                0, 256, 4 * args.k * cfg.block_size // 5,
+                dtype=np.uint8).tobytes())
+        store.seal()
+        events = load_trace(args.replay)
+        res = replay_trace(store, events,
+                           options=RepairOptions(
+                               schedule=args.schedule,
+                               destinations=args.destinations),
+                           revive=args.destinations != "topology",
+                           rebalance_after=args.rebalance)
+    # Simulated seconds accumulate across reader-pool threads, so their
+    # float sum can wiggle in the last ulp between runs; round them to a
+    # stable precision. Every other replay field is an exact count.
+    for row in res["batches"] + [res["totals"]]:
+        row["sim_seconds"] = round(row["sim_seconds"], 6)
+    out = {
+        "scheme": args.scheme, "k": args.k, "r": args.r, "p": args.p,
+        "nodes": nodes, "domains": args.domains, "policy": args.policy,
+        "trace": args.replay, "trace_events": len(events),
+        "schedule": args.schedule or cfg.stripe_schedule,
+        "destinations": args.destinations or cfg.rebuild_destinations,
+        "batches": res["batches"], "totals": res["totals"],
+        "rebalance": res["rebalance"],
+    }
+    print(json.dumps(out, indent=1, sort_keys=True))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -78,7 +142,9 @@ def main(argv=None) -> int:
                     help="record per-trial FleetEvent logs to a file")
     ap.add_argument("--replay", metavar="TRACE.json", default=None,
                     help="replay a FleetEvent trace against a real "
-                         "StripeStore (not ported yet: exits 2)")
+                         "StripeStore with correlated-arrival batching "
+                         "(repro_torch.ftx.failures.replay_trace) instead "
+                         "of running the simulator")
     ap.add_argument("--replay-store", metavar="DIR", default=None,
                     help="scratch directory for the replay store "
                          "(default: a temp dir)")
@@ -91,17 +157,13 @@ def main(argv=None) -> int:
     ap.add_argument("--rebalance", action="store_true",
                     help="run one rebalance pass after the --replay trace")
     ap.add_argument("--device", default="cuda",
-                    help='where selects, draws and calibration kernels '
-                         'run: "cuda" (default) or "cpu"')
+                    help='where selects, draws, and calibration and '
+                         'replay kernels run: "cuda" (default) or "cpu"')
     args = ap.parse_args(argv)
-
-    if (args.replay or args.replay_store or args.schedule
-            or args.destinations or args.rebalance):
-        ap.exit(2, "repro_torch.launch.simulate: --replay and its companion "
-                   "flags wait for the port's orchestration and replay "
-                   "modules (ROADMAP queue 1, item 6: ftx/failures.py and "
-                   "ftx/rebalance.py), which are not ported yet\n")
     device = resolve_device(args.device)
+
+    if args.replay:
+        return _replay(args, device)
 
     scheme = make_scheme(args.scheme, args.k, args.r, args.p)
     rel = ReliabilityParams()

@@ -267,6 +267,44 @@ def test_cuda_main_path_matches_cpu(cuda, backend, tmp_path, rng):
         assert f.read_bytes() == twin.read_bytes()
 
 
+BATCHED = {"gf": gm.gf256_matmul_batched,
+           "crs": bme.bitmatrix_encode_batched,
+           "mxu": bme.mod2_matmul_encode_batched}
+
+
+@pytest.mark.parametrize("backend", ["gf", "crs", "mxu"])
+def test_cuda_sharded_launch_over_four_positions_of_the_card(cuda, backend,
+                                                             rng):
+    """A 16-stripe window of P5's two-node plan under a 4x1 mesh on one
+    card: one kernel launch per slice, from a host stack and from an
+    assembled batch, byte-equal to the unsharded launch."""
+    from repro_torch.core.engine import BatchedCodecEngine
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.dist import (assemble_shards, make_mesh, shard_layout,
+                                  with_rules)
+
+    scheme = make_scheme("cp-azure", 24, 2, 2)
+    plain = BatchedCodecEngine(scheme, backend=backend, device=cuda)
+    plan = plain.planner.multi_plan([3, 4])
+    stack = rng.integers(0, 256, (16, len(plan.reads), 4096 + 5),
+                         dtype=np.uint8)
+    want = plain.execute(plan, stack)
+    mesh = make_mesh((4, 1), ("data", "model"), devices=("cuda:0",) * 4)
+    with with_rules(mesh) as mr:
+        eng = BatchedCodecEngine(scheme, backend=backend, device=cuda,
+                                 mesh_rules=mr)
+        layout = shard_layout(stack.shape, mr)
+        assembled = assemble_shards(stack.shape, mr, layout,
+                                    [stack[sl.lo:sl.hi] for sl in layout])
+        before = BATCHED[backend].launches
+        got = [eng.execute(plan, stack), eng.execute(plan, assembled)]
+        launched = BATCHED[backend].launches - before
+    assert eng.last_span == 4 and launched == 8
+    assert all(s.device == cuda for s in assembled.shards)
+    for out in got:
+        assert out.device == cuda and torch.equal(out, want)
+
+
 # ------------------------------------------------- the fleet simulator
 
 def test_cuda_bits_match_the_numpy_chain(cuda):

@@ -460,16 +460,33 @@ def test_cli_oracle_divergence_exits_1(capsys, monkeypatch):
     assert "diverged" in err
 
 
-@pytest.mark.parametrize("flag", [["--replay", "trace.json"],
-                                  ["--replay-store", "x"],
-                                  ["--schedule", "locality"],
-                                  ["--destinations", "topology"],
-                                  ["--rebalance"]])
-def test_cli_replay_flags_exit_2(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(flag + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert "item 6" in capsys.readouterr().err
+# tests/test_orchestration.py's --replay command line, then each knob of
+# the replay on its own and the reference CLI's defaults.
+REPLAY_ARGS = ["--replay", str(ROOT / "tests" / "data" /
+                               "correlated_trace.json"),
+               "--nodes", "24", "--domains", "12", "--policy", "spread"]
+
+
+@pytest.mark.parametrize("knobs", [
+    ["--schedule", "global", "--destinations", "topology", "--rebalance"],
+    ["--schedule", "locality", "--destinations", "in_place"],
+    ["--schedule", "none", "--destinations", "topology"],
+    ["--destinations", "in_place", "--rebalance"],
+    []], ids=["global-topology-rebalance", "locality-in_place",
+              "none-topology", "in_place-rebalance", "defaults"])
+def test_cli_replay_equals_reference(knobs, capsys, tmp_path):
+    """``--replay`` prints the reference command's JSON byte for byte."""
+    argv = REPLAY_ARGS + knobs
+    assert cli.main(argv + ["--replay-store", str(tmp_path / "port"),
+                            "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert ref_cli.main(argv + ["--replay-store",
+                                str(tmp_path / "ref")]) == 0
+    want = capsys.readouterr().out
+    assert got == want
+    doc = json.loads(got)
+    assert doc["trace_events"] == 6 and len(doc["batches"]) == 4
+    assert (doc["rebalance"] is None) == ("--rebalance" not in knobs)
 
 
 def test_cli_default_device_is_the_card():
