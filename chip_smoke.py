@@ -97,13 +97,30 @@ Phases (any failure raises and the script exits non-zero):
    file must hash as sealed and the payload must come back. The replay
    command line then runs twice on the card and once on the host and
    must print the same JSON each time.
+8. Serving a model (``[serve-model]`` lines). 8a: qwen2.5-3b at its
+   published widths (3,085,938,688 bf16 parameters, 6,171,877,376 bytes,
+   drawn on the card from the seed): prefill and one decode step against
+   the full forward on a B=2, S=64 batch (under 0.02 relative), then
+   ``ServeEngine(max_batch=4, max_len=128)`` serves the serving command's
+   load (8 prompts of 4 to 31 tokens, 8 new tokens each) twice, with the
+   same tokens both times; prefill and decode-step milliseconds (CUDA
+   events), tokens/s, p50/p99 and peak memory. 8b: every decoder-only
+   SMOKE config in fp32, weights made on the host and moved to the card:
+   prefill logits within 1e-4 of the host's and the engines' tokens
+   identical (gemma3 with a prompt shorter than its window). 8c: 8a's
+   parameters through ``save_async`` under the default
+   ``CheckpointConfig``, hosts 1 and 2 emptied and failed, a parallel
+   degraded ``restore`` byte for byte, and a fresh engine on the restored
+   parameters giving 8a's tokens exactly (the GF(2^8) kernels'
+   ``serve_model`` launches).
 
-Each path (3, 4, 5, 6, 7a, 7b) runs with the kernel wrappers' launch counts
-set to 0 just before it and read just after, and fails if a kernel it runs
-was never launched. The line before the last is a JSON object with one entry
-per kernel (``launches`` is phase 3's count, ``launches_by_path`` each
-path's, ``sharded`` and ``replay`` for 7a and 7b; the simulator's select and draws are plain torch on the card, not
-kernels of this line); the
+Each path (3, 4, 5, 6, 7a, 7b, 8c) runs with the kernel wrappers' launch
+counts set to 0 just before it and read just after, and fails if a kernel
+it runs was never launched. The line before the last is a JSON object with
+one entry per kernel (``launches`` is phase 3's count, ``launches_by_path``
+each path's, ``sharded`` and ``replay`` for 7a and 7b, ``serve_model`` for
+8c; the simulator's select and draws are plain torch on the card, and the
+model's layers stock torch operators, not kernels of this line); the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
 outside a checkout, it fails and prints no result.
 """
@@ -515,6 +532,18 @@ def main() -> None:
           f"{replay['phase_seconds']} s, in all "
           f"{sharded['phase_seconds'] + replay['phase_seconds']} s")
 
+    # ------------------------------------------------ 8. serving a model
+    served = serve_model_phase(np, torch, dev, smi)
+    host_card_phase(np, torch, dev)
+    workdir = Path(tempfile.mkdtemp(prefix="serve-model-",
+                                    dir=ROOT / "_smoke"))
+    try:
+        checkpoint_serve_phase(np, torch, dev, workdir, served,
+                               wrappers["gf"], by_path)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del served
+
     s, m, k = big
     kms, pms, bms, by, dms = timings[big]
     kernels = [
@@ -799,9 +828,13 @@ REPAIR_PLANS = ((1, 12), (1, 2), (2, 24), (2, 13))
 # the tail of 2355 stripes, and its decodes with hosts 1 and 2 lost, on
 # restore (one or two targets) and repair; phase 6's calibration store
 # (cp-azure(24,2,2) at 2 KiB blocks): its seal's flat parity encode, one a
-# stripe, and its repair's local decode, one stripe a launch.
+# stripe, and its repair's local decode, one stripe a launch; phase 8c's
+# save of qwen2.5-3b (2943 stripes): the tail window of 31 (its other
+# windows are phase 5's).
 GF_PATH_SHAPES = (("serve", 1, 1, 12, 1 << 20), ("save", 32, 4, 8, 1 << 18),
-                  ("save", 19, 4, 8, 1 << 18), ("restore", 32, 1, 4, 1 << 18),
+                  ("save", 19, 4, 8, 1 << 18),
+                  ("serve_model", 31, 4, 8, 1 << 18),
+                  ("restore", 32, 1, 4, 1 << 18),
                   ("restore", 32, 2, 8, 1 << 18),
                   ("repair", 32, 2, 5, 1 << 18), ("sim", 1, 4, 24, 2048),
                   ("sim", 1, 1, 12, 2048))
@@ -1934,6 +1967,341 @@ def replay_phase(np, torch, dev, workdir: Path, wrappers: dict,
           f"{len(doc['batches'])} batches, totals "
           + json.dumps(doc["totals"]))
     print(f"[replay] phase 7b in {out['phase_seconds']} s")
+    return out
+
+
+# -------------------------------------------- phase 8: serving a model
+# qwen2.5-3b, the reference serving command's default arch, at its
+# published widths (36 layers, d_model 2048, 16 query and 2 key/value heads
+# of 128, SwiGLU d_ff 11008, vocabulary 151936, biases on q/k/v) in bf16,
+# from seed 0; the reference's param_count of it (tests/test_torch_models.py
+# holds the port's count to the reference's).
+MODEL_ARCH = "qwen2.5-3b"
+MODEL_PARAMS = 3_085_938_688
+# The reference command's load: its request count, tokens per request and
+# slots; prompts of 4 to 31 tokens drawn as it draws them.
+MODEL_REQUESTS, MODEL_MAX_NEW, MODEL_MAX_BATCH, MODEL_MAX_LEN = 8, 8, 4, 128
+# 8b: the twin engines' load on every decoder-only SMOKE config (3 slots,
+# 5 requests, so slots are reused); 9 tokens is shorter than gemma3
+# SMOKE's window of 32.
+HOST_PROMPTS = (36, 9, 47, 33, 40)
+HOST_MAX_BATCH, HOST_MAX_LEN, HOST_MAX_NEW = 3, 96, 6
+
+
+def gf_wrappers() -> tuple:
+    """The GF(2^8) kernels' wrappers (K1, K2), which count their launches."""
+    from repro_torch.kernels import gf256_matmul as gm
+
+    return gm.gf256_matmul_batched, gm.gf256_matmul
+
+
+def _rel(torch, want, got) -> float:
+    want, got = want.float(), got.float().to(want.device)
+    return float((want - got).abs().max() / (want.abs().max() + 1e-9))
+
+
+def serve_prompts(np, vocab: int) -> list:
+    """The serving command's prompts: ``MODEL_REQUESTS`` draws of 4 to 31
+    tokens from ``default_rng(0)``, as ``serve_model`` makes them."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, int(rng.integers(4, 32)))
+            for _ in range(MODEL_REQUESTS)]
+
+
+def timed_calls(torch, dev, fn, times: list):
+    """``fn`` that appends its milliseconds to ``times``: CUDA events on
+    the card (read after the caller synchronises), the host clock on the
+    host."""
+    if dev.type != "cuda":
+        def host(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return host
+
+    def card(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        times.append((start, end))
+        return out
+    return card
+
+
+def _ms(times: list) -> list:
+    return [t if isinstance(t, float) else t[0].elapsed_time(t[1])
+            for t in times]
+
+
+def run_engine(np, torch, api, params, dev, prompts, max_batch: int,
+               max_len: int, max_new: int) -> dict:
+    """Serve ``prompts`` through a fresh ``ServeEngine`` on ``dev``: every
+    request's tokens, the wall, the latency snapshot and each prefill's
+    and decode step's milliseconds."""
+    from repro_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(api, max_batch=max_batch, max_len=max_len,
+                         device=dev)
+    engine.load(params)
+    pre, dec = [], []
+    engine._prefill = timed_calls(torch, dev, engine._prefill, pre)
+    engine._decode = timed_calls(torch, dev, engine._decode, dec)
+    reqs = [engine.submit(p, max_new=max_new) for p in prompts]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.done for r in reqs), "the engine left requests unfinished")
+    return {"tokens": [list(r.out_tokens) for r in reqs], "wall": wall,
+            "latency": engine.latency_stats(), "prefill_ms": _ms(pre),
+            "decode_ms": _ms(dec)}
+
+
+def profile_step(torch, fn) -> dict:
+    """One call of ``fn`` (after a warm-up call) under torch.profiler: its
+    wall, the device time of every operator it ran on the card, the number
+    of device kernels, the device's busy share of the wall and the top five
+    device operators by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            kernels += 1
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall * 1e3, "device_ms": busy,
+            "device_kernels": kernels,
+            "device_busy_share": busy / (wall * 1e3) if busy else None,
+            "top_device_ms": {name[:60]: ms for name, ms in top}}
+
+
+def serve_model_phase(np, torch, dev, smi: str, smoke: bool = False) -> dict:
+    """Phase 8a: ``MODEL_ARCH`` (its SMOKE config with ``smoke``) drawn on
+    ``dev`` from the seed in bf16; its parameter count and bytes; prefill
+    and one decode step against the full forward on a B=2, S=64 batch
+    (relative error under 0.02, the reference's bound); then the serving
+    command's load through ``ServeEngine`` twice, every request finishing
+    with ``MODEL_MAX_NEW`` tokens, the same tokens both times. Prints the
+    ``[serve-model]`` line."""
+    from repro_torch.configs import get_model
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.common import make_generator, tree_leaves
+
+    t_phase = time.perf_counter()
+    api = get_model(MODEL_ARCH, smoke=smoke)
+    cfg = api.cfg
+    count = api.param_count()
+    check(smoke or count == MODEL_PARAMS,
+          f"{MODEL_ARCH}: {count} parameters, the reference has "
+          f"{MODEL_PARAMS}")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(make_generator(SEED, dev))
+    leaves = tree_leaves(params)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.device == dev for t in leaves),
+          f"parameters off {dev} after init_params")
+    check(sum(t.numel() for t in leaves) == count and nbytes == 2 * count,
+          f"{nbytes} bytes of parameters on {dev} for {count} bf16 "
+          f"parameters")
+
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65))).to(dev)
+    full = lm.forward(params, {"tokens": toks}, cfg)
+    pre, caches = api.prefill(params, {"tokens": toks[:, :64]})
+    caches = blocks.pad_caches(caches, cfg, 72)
+    dec, _ = api.decode_step(params, caches, toks[:, 64:65], 64)
+    consistency = {"prefill": _rel(torch, full[:, 63], pre[:, 0]),
+                   "decode": _rel(torch, full[:, 64], dec[:, 0])}
+    check(bool(torch.isfinite(full).all()) and full.shape
+          == (2, 65, cfg.vocab_size), "forward logits not finite or shaped "
+          f"{tuple(full.shape)}")
+    check(max(consistency.values()) < 0.02,
+          f"prefill/decode against forward: {consistency}")
+    del full, pre, caches, dec
+
+    prompts = serve_prompts(np, cfg.vocab_size)
+    profiles = {}
+    if on_card:
+        # Where a step's time goes: one engine-shaped decode step (B = 4
+        # slots, max_len 128) and one prefill of the first prompt.
+        caches = api.init_caches(cfg, MODEL_MAX_BATCH, MODEL_MAX_LEN,
+                                 device=dev)
+        step_toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (MODEL_MAX_BATCH, 1))).to(dev)
+        index = torch.tensor([len(p) for p in prompts[:MODEL_MAX_BATCH]],
+                             device=dev)
+        profiles["decode"] = profile_step(torch, lambda: api.decode_step(
+            params, caches, step_toks, index))
+        first_prompt = torch.from_numpy(prompts[0][None]).to(dev)
+        profiles["prefill"] = profile_step(torch, lambda: api.prefill(
+            params, {"tokens": first_prompt}))
+        del caches
+    runs = [run_engine(np, torch, api, params, dev, prompts, MODEL_MAX_BATCH,
+                       MODEL_MAX_LEN, MODEL_MAX_NEW) for _ in range(2)]
+    first = runs[0]
+    check(all(len(t) == MODEL_MAX_NEW for t in first["tokens"]),
+          f"token counts {[len(t) for t in first['tokens']]}")
+    check(runs[1]["tokens"] == first["tokens"],
+          "a second run of the engine gave other tokens")
+    ntok = sum(len(t) for t in first["tokens"])
+    out = {"arch": MODEL_ARCH if not smoke else cfg.name,
+           "param_count": count, "param_bytes": nbytes,
+           "init_seconds": init_s, "consistency": consistency,
+           "requests": len(prompts),
+           "prompt_lengths": [len(p) for p in prompts], "tokens_out": ntok,
+           "prefill_ms_per_request": first["prefill_ms"],
+           "prefill_ms_median": statistics.median(first["prefill_ms"]),
+           "decode_steps": len(first["decode_ms"]),
+           "decode_step_ms_median": statistics.median(first["decode_ms"]),
+           "wall_seconds": [r["wall"] for r in runs],
+           "tokens_per_second": ntok / first["wall"],
+           "p50_ms": first["latency"]["p50_ms"],
+           "p99_ms": first["latency"]["p99_ms"],
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if on_card else None),
+           "profiles": profiles,
+           "card": smi, "phase_seconds": time.perf_counter() - t_phase}
+    print("[serve-model] 8a " + json.dumps(out))
+    out.update(api=api, params=params, prompts=prompts,
+               tokens=first["tokens"])
+    return out
+
+
+def host_card_phase(np, torch, dev) -> dict:
+    """Phase 8b: every decoder-only SMOKE config in fp32, its weights made
+    on the host from the seed and moved to ``dev``: prefill logits on
+    ``dev`` within 1e-4 (relative to the host's largest) of the host's, and
+    the twin engines' tokens on ``HOST_PROMPTS`` identical. f32 products
+    run in full f32 on the card (no TF32)."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import build
+    from repro_torch.models.common import make_generator, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    host = torch.device("cpu")
+    rows = {}
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        if cfg.family == "encdec":
+            continue
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+        api = build(cfg)
+        params = api.init_params(make_generator(SEED, host))
+        moved = tree_map(lambda t: t.to(dev), params)
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 40)))}
+        if cfg.frontend != "none":
+            batch["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.frontend_tokens, cfg.d_model))).to(torch.bfloat16)
+        want, _ = api.prefill(params, batch)
+        got, _ = api.prefill(moved, {k: v.to(dev) for k, v in batch.items()})
+        err = _rel(torch, want, got)
+        check(err < 1e-4, f"{arch}: prefill logits on {dev} differ from the "
+              f"host's by {err}")
+        prompts = [np.random.default_rng([SEED, n]).integers(
+            0, cfg.vocab_size, n) for n in HOST_PROMPTS]
+        served = [run_engine(np, torch, api, p, d, prompts, HOST_MAX_BATCH,
+                             HOST_MAX_LEN, HOST_MAX_NEW)["tokens"]
+                  for p, d in ((params, host), (moved, dev))]
+        check(served[1] == served[0],
+              f"{arch}: the engine's tokens on {dev} differ from the host's")
+        rows[arch] = {"prefill_rel_err": err,
+                      "tokens": sum(len(t) for t in served[1])}
+    out = {"archs": rows, "phase_seconds": time.perf_counter() - t_phase}
+    print("[serve-model] 8b card against host, fp32: " + json.dumps(out))
+    return out
+
+
+def checkpoint_serve_phase(np, torch, dev, workdir: Path, served: dict,
+                           wrappers, by_path: dict) -> dict:
+    """Phase 8c: 8a's parameters saved with ``save_async`` under the
+    default ``CheckpointConfig``, the block files of hosts 1 and 2 emptied
+    and the hosts failed, a parallel degraded ``restore``, the restored
+    tensors (byte-equal to the saved ones) moved to ``dev`` and loaded into
+    a fresh ``ServeEngine``, which must give 8a's tokens exactly. The
+    GF(2^8) wrappers count from 0 over the phase into
+    ``by_path[name]["serve_model"]``."""
+    from repro_torch.ftx import CheckpointConfig, CheckpointManager
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    default = CheckpointConfig()
+    params, api = served["params"], served["api"]
+    nbytes = served["param_bytes"]
+    st = default.store
+    need = nbytes * (st.k + st.r + st.p) // st.k + (1 << 30)
+    free = shutil.disk_usage(workdir).free
+    check(free > need, f"the model checkpoint needs {need} bytes of disk, "
+          f"{free} free")
+    for fn in wrappers:
+        fn.launches = 0
+    cm = CheckpointManager(workdir / "serve", default, device=dev)
+    t0 = time.perf_counter()
+    info = cm.save_async(1, params).result()
+    save_s = time.perf_counter() - t0
+    step_dir = workdir / "serve" / "step1"
+    lost = [p for h in CKPT_HOSTS for p in (step_dir / f"node{h}").glob("*.blk")]
+    for p in lost:
+        p.write_bytes(b"")
+    cm.fail_hosts(1, CKPT_HOSTS)
+    restored, tele = cm.restore(1, params)
+    check(tele["degraded_blocks"] > 0,
+          f"restore after losing hosts {CKPT_HOSTS}: no degraded block")
+    loaded = tree_map(lambda t: t.to(dev), restored)
+    del restored
+    pairs = []
+    tree_map(lambda want, got: pairs.append(same_bytes(torch, got, want)),
+             params, loaded)
+    check(all(pairs) and len(pairs) == len(tree_leaves(params)),
+          f"{pairs.count(False)} restored tensors differ from the saved ones")
+    run = run_engine(np, torch, api, loaded, dev, served["prompts"],
+                     MODEL_MAX_BATCH, MODEL_MAX_LEN, MODEL_MAX_NEW)
+    for fn in wrappers:
+        by_path[fn.__name__]["serve_model"] = fn.launches
+    equal = run["tokens"] == served["tokens"]
+    check(equal, "the engine on the restored parameters gave other tokens")
+    k1 = wrappers[0]
+    check(dev.type != "cuda" or k1.launches > 0,
+          f"{k1.__name__} was never launched on the serve_model path")
+    del loaded
+    shutil.rmtree(workdir / "serve", ignore_errors=True)
+    out = {"bytes": info["bytes"], "stripes": info["stripes"],
+           "save_seconds": save_s,
+           "snapshot_seconds": info["snapshot_seconds"],
+           "encode_launches": info["encode"]["launches"],
+           "lost_block_files": len(lost), "restore": tele,
+           "tokens_equal": equal,
+           "launches": {fn.__name__: fn.launches for fn in wrappers},
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("[serve-model] 8c from an erasure-coded checkpoint after losing "
+          f"hosts {CKPT_HOSTS}: " + json.dumps(out))
     return out
 
 

@@ -11,7 +11,11 @@ derive it from the coefficients (``CompiledPlan.bit_coeffs``).
 
 Checkpoints do carry tensors: :func:`state_from_reference` turns the
 reference's state tree of numpy arrays into the same nesting of torch
-tensors, so both packages can checkpoint one state.
+tensors, so both packages can checkpoint one state. Models carry them too:
+:func:`params_from_reference` turns the reference's parameter (or cache)
+nest into the port's, with each of its named tuples as the port's class of
+the same name, and :func:`config_from_reference` its ``ModelConfig``, so
+both packages can run one model on the same weights.
 """
 from __future__ import annotations
 
@@ -28,8 +32,16 @@ from repro_torch.core.schemes import Cascade, Group, LRCScheme
 from repro_torch.device import resolve_device
 from repro_torch.ftx.checkpoint import _tree_leaves, _tree_unflatten
 from repro_torch.ftx.stripestore import StripeStore
+from repro_torch.models.attention import AttnParams, KVCache
+from repro_torch.models.blocks import LayerParams
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.mlp import MLPParams, MoEParams
+from repro_torch.models.ssm import SSMCache, SSMParams
 
 _PLAN_META = {"RepairPlan": RepairPlan, "MultiRepairPlan": MultiRepairPlan}
+_MODEL_TUPLES = {cls.__name__: cls for cls in (
+    AttnParams, KVCache, MLPParams, MoEParams, SSMParams, SSMCache,
+    LayerParams)}
 
 
 def _fields(obj, cls):
@@ -90,3 +102,37 @@ def state_from_reference(tree, *, device: str | torch.device = "cuda"):
     dev = resolve_device(device)
     return _tree_unflatten(tree, iter([_tensor_of(leaf, dev)
                                        for leaf in _tree_leaves(tree)]))
+
+
+def _model_nest(node, dev: torch.device):
+    if node is None:
+        return None
+    if isinstance(node, Mapping):
+        return {k: _model_nest(v, dev) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        cls = _MODEL_TUPLES[type(node).__name__]
+        return cls(*(_model_nest(child, dev) for child in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_model_nest(child, dev) for child in node)
+    return _tensor_of(node, dev)
+
+
+def params_from_reference(tree, *, device: str | torch.device = "cuda"):
+    """The reference's model parameters (``init_params``'s nest: dicts,
+    lists of per-position ``LayerParams`` with stacked leaves, and the
+    reference's named tuples) as the port holds them: the same nesting,
+    each named tuple as the port's class of the same name
+    (``AttnParams``, ``MLPParams``, ``MoEParams``, ``SSMParams``,
+    ``LayerParams``; ``KVCache`` and ``SSMCache`` for a cache nest), and
+    each leaf (a numpy or JAX array, bf16 included) as a tensor of the same
+    dtype, shape and bytes on ``device``."""
+    return _model_nest(tree, resolve_device(device))
+
+
+def config_from_reference(cfg) -> ModelConfig:
+    """The port's ``ModelConfig`` for the reference's: every field as it
+    is, with ``param_dtype`` the torch dtype of the same name."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    fields["param_dtype"] = getattr(torch, np.dtype(cfg.param_dtype).name)
+    return ModelConfig(**fields)

@@ -48,6 +48,23 @@ def test_hygiene_walk_sees_forbidden_imports(tmp_path):
     assert _imported(probe) & set(FORBIDDEN) == {"jax", "jaxlib", "repro"}
 
 
+def test_chip_smoke_binds_each_top_level_name_once():
+    """Phases share ``chip_smoke.py``'s module namespace: a constant or
+    function bound twice at top level silently changes an earlier phase."""
+    seen, twice = set(), set()
+    for node in ast.parse((ROOT / "chip_smoke.py").read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [n.id for t in node.targets for n in ast.walk(t)
+                     if isinstance(n, ast.Name)]
+        else:
+            continue
+        twice.update(n for n in names if n in seen)
+        seen.update(names)
+    assert not twice, f"chip_smoke.py binds {sorted(twice)} twice"
+
+
 def _smoke(cwd: Path, env: dict) -> subprocess.CompletedProcess:
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           env=env, capture_output=True, text=True,

@@ -143,6 +143,37 @@ def test_twin_stores_serve_degraded_identically(nodes, backend, tmp_path,
         == backend
 
 
+@pytest.mark.parametrize("backend", ["ref", "gf"])
+@pytest.mark.parametrize("down", [1, 2])
+def test_twin_stores_hedged_reads_identically(backend, down, tmp_path, rng):
+    """``StoreConfig(hedge=2)``: a degraded ``get`` ranks the single
+    repairs whose sources live by the simulated node latencies (the hedged
+    path of ``_pick_single_plan``) and falls back to a multi-block plan when
+    none lives (``down=2`` fails two blocks of one local group). Bytes,
+    read counts and simulated seconds agree with the reference's. In every
+    scheme a data block has one single-repair candidate, so the ranking
+    picks among one: no choice of it shows in what ``get`` returns, in
+    either package."""
+    ref, port, blobs = _twins(tmp_path, rng, backend=backend, hedge=2)
+    assert ref.latency_ms == port.latency_ms
+    nodes = ref.stripes[0].node_of_block[:down]
+    for st in (ref, port):
+        for node in nodes:
+            st.fail_node(node)
+    for key, blob in blobs.items():
+        got, want = port.get(key), ref.get(key)
+        assert (got == want).all() and (got == blob).all()
+    g, w = read_report(port), read_report(ref)
+    for f in ("direct_reads", "degraded_reads", "coalesced_reads",
+              "decode_launches", "local_decodes", "global_decodes",
+              "replans", "cache_hits", "cache_misses", "served_bytes",
+              "blocks_read", "bytes_read"):
+        assert getattr(g, f) == getattr(w, f), f
+    assert port.telemetry.blocks_read == ref.telemetry.blocks_read > 0
+    assert port.telemetry.sim_seconds == pytest.approx(
+        ref.telemetry.sim_seconds, rel=1e-9)
+
+
 def test_manifest_round_trip_and_from_reference(tmp_path, rng):
     ref, port, blobs = _twins(tmp_path, rng, backend="ref")
     doc = json.loads((ref.root / "manifest.json").read_text())
