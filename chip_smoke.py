@@ -2008,34 +2008,6 @@ def serve_prompts(np, vocab: int) -> list:
             for _ in range(MODEL_REQUESTS)]
 
 
-def timed_calls(torch, dev, fn, times: list):
-    """``fn`` that appends its milliseconds to ``times``: CUDA events on
-    the card (read after the caller synchronises), the host clock on the
-    host."""
-    if dev.type != "cuda":
-        def host(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            times.append((time.perf_counter() - t0) * 1e3)
-            return out
-        return host
-
-    def card(*args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*args)
-        end.record()
-        times.append((start, end))
-        return out
-    return card
-
-
-def _ms(times: list) -> list:
-    return [t if isinstance(t, float) else t[0].elapsed_time(t[1])
-            for t in times]
-
-
 def run_engine(np, torch, api, params, dev, prompts, max_batch: int,
                max_len: int, max_new: int) -> dict:
     """Serve ``prompts`` through a fresh ``ServeEngine`` on ``dev``: every
@@ -2046,9 +2018,6 @@ def run_engine(np, torch, api, params, dev, prompts, max_batch: int,
     engine = ServeEngine(api, max_batch=max_batch, max_len=max_len,
                          device=dev)
     engine.load(params)
-    pre, dec = [], []
-    engine._prefill = timed_calls(torch, dev, engine._prefill, pre)
-    engine._decode = timed_calls(torch, dev, engine._decode, dec)
     reqs = [engine.submit(p, max_new=max_new) for p in prompts]
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2058,9 +2027,10 @@ def run_engine(np, torch, api, params, dev, prompts, max_batch: int,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(all(r.done for r in reqs), "the engine left requests unfinished")
+    call_ms = engine.call_ms()
     return {"tokens": [list(r.out_tokens) for r in reqs], "wall": wall,
-            "latency": engine.latency_stats(), "prefill_ms": _ms(pre),
-            "decode_ms": _ms(dec)}
+            "latency": engine.latency_stats(),
+            "prefill_ms": call_ms["prefill"], "decode_ms": call_ms["decode"]}
 
 
 def profile_step(torch, fn) -> dict:
@@ -2103,7 +2073,8 @@ def serve_model_phase(np, torch, dev, smi: str, smoke: bool = False) -> dict:
     ``[serve-model]`` line."""
     from repro_torch.configs import get_model
     from repro_torch.models import blocks, lm
-    from repro_torch.models.common import make_generator, tree_leaves
+    from repro_torch.models.common import make_generator
+    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
     api = get_model(MODEL_ARCH, smoke=smoke)
@@ -2196,44 +2167,55 @@ def host_card_phase(np, torch, dev) -> dict:
     on the host from the seed and moved to ``dev``: prefill logits on
     ``dev`` within 1e-4 (relative to the host's largest) of the host's, and
     the twin engines' tokens on ``HOST_PROMPTS`` identical. f32 products
-    run in full f32 on the card (no TF32)."""
+    run in full f32 on the card (no TF32 during the phase; the flags are
+    restored after it)."""
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.models import build
-    from repro_torch.models.common import make_generator, tree_map
+    from repro_torch.models.common import make_generator
+    from repro_torch.tree import tree_map
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
     host = torch.device("cpu")
     rows = {}
-    for arch in ARCHS:
-        cfg = get_config(arch, smoke=True)
-        if cfg.family == "encdec":
-            continue
-        cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
-        api = build(cfg)
-        params = api.init_params(make_generator(SEED, host))
-        moved = tree_map(lambda t: t.to(dev), params)
-        rng = np.random.default_rng(SEED)
-        batch = {"tokens": torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, (2, 40)))}
-        if cfg.frontend != "none":
-            batch["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
-                (2, cfg.frontend_tokens, cfg.d_model))).to(torch.bfloat16)
-        want, _ = api.prefill(params, batch)
-        got, _ = api.prefill(moved, {k: v.to(dev) for k, v in batch.items()})
-        err = _rel(torch, want, got)
-        check(err < 1e-4, f"{arch}: prefill logits on {dev} differ from the "
-              f"host's by {err}")
-        prompts = [np.random.default_rng([SEED, n]).integers(
-            0, cfg.vocab_size, n) for n in HOST_PROMPTS]
-        served = [run_engine(np, torch, api, p, d, prompts, HOST_MAX_BATCH,
-                             HOST_MAX_LEN, HOST_MAX_NEW)["tokens"]
-                  for p, d in ((params, host), (moved, dev))]
-        check(served[1] == served[0],
-              f"{arch}: the engine's tokens on {dev} differ from the host's")
-        rows[arch] = {"prefill_rel_err": err,
-                      "tokens": sum(len(t) for t in served[1])}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in ARCHS:
+            cfg = get_config(arch, smoke=True)
+            if cfg.family == "encdec":
+                continue
+            cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
+            api = build(cfg)
+            params = api.init_params(make_generator(SEED, host))
+            moved = tree_map(lambda t: t.to(dev), params)
+            rng = np.random.default_rng(SEED)
+            batch = {"tokens": torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (2, 40)))}
+            if cfg.frontend != "none":
+                batch["prefix_embeds"] = torch.from_numpy(
+                    rng.standard_normal((2, cfg.frontend_tokens,
+                                         cfg.d_model))).to(torch.bfloat16)
+            want, _ = api.prefill(params, batch)
+            got, _ = api.prefill(moved, {k: v.to(dev)
+                                         for k, v in batch.items()})
+            err = _rel(torch, want, got)
+            check(err < 1e-4, f"{arch}: prefill logits on {dev} differ from "
+                  f"the host's by {err}")
+            prompts = [np.random.default_rng([SEED, n]).integers(
+                0, cfg.vocab_size, n) for n in HOST_PROMPTS]
+            served = [run_engine(np, torch, api, p, d, prompts,
+                                 HOST_MAX_BATCH, HOST_MAX_LEN,
+                                 HOST_MAX_NEW)["tokens"]
+                      for p, d in ((params, host), (moved, dev))]
+            check(served[1] == served[0], f"{arch}: the engine's tokens on "
+                  f"{dev} differ from the host's")
+            rows[arch] = {"prefill_rel_err": err,
+                          "tokens": sum(len(t) for t in served[1])}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
     out = {"archs": rows, "phase_seconds": time.perf_counter() - t_phase}
     print("[serve-model] 8b card against host, fp32: " + json.dumps(out))
     return out
@@ -2249,7 +2231,7 @@ def checkpoint_serve_phase(np, torch, dev, workdir: Path, served: dict,
     GF(2^8) wrappers count from 0 over the phase into
     ``by_path[name]["serve_model"]``."""
     from repro_torch.ftx import CheckpointConfig, CheckpointManager
-    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
     default = CheckpointConfig()

@@ -30,13 +30,13 @@ from repro_torch.core.planner import CompiledPlan
 from repro_torch.core.repair import MultiRepairPlan, RepairPlan
 from repro_torch.core.schemes import Cascade, Group, LRCScheme
 from repro_torch.device import resolve_device
-from repro_torch.ftx.checkpoint import _tree_leaves, _tree_unflatten
 from repro_torch.ftx.stripestore import StripeStore
 from repro_torch.models.attention import AttnParams, KVCache
 from repro_torch.models.blocks import LayerParams
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.mlp import MLPParams, MoEParams
 from repro_torch.models.ssm import SSMCache, SSMParams
+from repro_torch.tree import tree_map
 
 _PLAN_META = {"RepairPlan": RepairPlan, "MultiRepairPlan": MultiRepairPlan}
 _MODEL_TUPLES = {cls.__name__: cls for cls in (
@@ -100,21 +100,7 @@ def state_from_reference(tree, *, device: str | torch.device = "cuda"):
     bytes on ``device``. A Python scalar becomes the 0-d tensor of the
     dtype numpy gives it, so checkpoint metadata stays the reference's."""
     dev = resolve_device(device)
-    return _tree_unflatten(tree, iter([_tensor_of(leaf, dev)
-                                       for leaf in _tree_leaves(tree)]))
-
-
-def _model_nest(node, dev: torch.device):
-    if node is None:
-        return None
-    if isinstance(node, Mapping):
-        return {k: _model_nest(v, dev) for k, v in node.items()}
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        cls = _MODEL_TUPLES[type(node).__name__]
-        return cls(*(_model_nest(child, dev) for child in node))
-    if isinstance(node, (list, tuple)):
-        return type(node)(_model_nest(child, dev) for child in node)
-    return _tensor_of(node, dev)
+    return tree_map(lambda leaf: _tensor_of(leaf, dev), tree)
 
 
 def params_from_reference(tree, *, device: str | torch.device = "cuda"):
@@ -126,7 +112,9 @@ def params_from_reference(tree, *, device: str | torch.device = "cuda"):
     ``LayerParams``; ``KVCache`` and ``SSMCache`` for a cache nest), and
     each leaf (a numpy or JAX array, bf16 included) as a tensor of the same
     dtype, shape and bytes on ``device``."""
-    return _model_nest(tree, resolve_device(device))
+    dev = resolve_device(device)
+    return tree_map(lambda leaf: _tensor_of(leaf, dev), tree,
+                    retype=lambda cls: _MODEL_TUPLES[cls.__name__])
 
 
 def config_from_reference(cfg) -> ModelConfig:

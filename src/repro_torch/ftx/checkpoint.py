@@ -33,10 +33,11 @@ than a replication system's full re-read plus re-replication.
 The state is a nest of dicts, ordered dicts, lists, tuples and named
 tuples over leaves that are torch tensors (on any device), numpy arrays or
 Python scalars; ``None`` holds no leaf. Leaves are laid out in the order
-the JAX package's checkpoints use (a plain dict's keys sorted, an ordered
-dict's in insertion order, sequences in order) and recorded under numpy's
-dtype names (``"bfloat16"`` for ``torch.bfloat16``), so a checkpoint
-written by either package restores in the other byte for byte.
+the JAX package's checkpoints use (``repro_torch.tree``: a plain dict's
+keys sorted, an ordered dict's in insertion order, sequences in order) and
+recorded under numpy's dtype names (``"bfloat16"`` for ``torch.bfloat16``),
+so a checkpoint written by either package restores in the other byte for
+byte.
 ``restore`` rebuilds the template's nesting with CPU tensors of the
 recorded dtypes and shapes.
 """
@@ -48,16 +49,16 @@ import re
 import shutil
 import threading
 import time
-from collections import OrderedDict, defaultdict
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 from pathlib import Path
-from typing import Any, Iterator, Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import current_rules
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 from .pipeline import EncodePipeline, PipelineHook
 from .stripestore import StoreConfig, StripeStore, launch_step
@@ -95,51 +96,6 @@ class CheckpointConfig:
 
 
 # ------------------------------------------------------------ state trees
-def _is_namedtuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _tree_leaves(tree: PyTree) -> list:
-    """The leaves of ``tree`` in checkpoint order: a plain dict (or
-    defaultdict) by sorted key, an OrderedDict in insertion order, lists,
-    tuples and named tuples in order; ``None`` holds none, and anything
-    else is one leaf."""
-    if tree is None:
-        return []
-    if type(tree) is OrderedDict:
-        children = list(tree.values())
-    elif type(tree) in (dict, defaultdict):
-        children = [tree[k] for k in sorted(tree)]
-    elif type(tree) in (list, tuple) or _is_namedtuple(tree):
-        children = list(tree)
-    else:
-        return [tree]
-    return [leaf for child in children for leaf in _tree_leaves(child)]
-
-
-def _tree_unflatten(template: PyTree, leaves: Iterator) -> PyTree:
-    """``template``'s nesting with its leaves drawn, in checkpoint order,
-    from ``leaves``."""
-    if template is None:
-        return None
-    if type(template) is OrderedDict:
-        return OrderedDict((k, _tree_unflatten(v, leaves))
-                           for k, v in template.items())
-    if type(template) is dict:
-        return {k: _tree_unflatten(template[k], leaves)
-                for k in sorted(template)}
-    if type(template) is defaultdict:
-        return defaultdict(template.default_factory,
-                           ((k, _tree_unflatten(template[k], leaves))
-                            for k in sorted(template)))
-    if _is_namedtuple(template):
-        return type(template)(*(_tree_unflatten(c, leaves)
-                                for c in template))
-    if type(template) in (list, tuple):
-        return type(template)(_tree_unflatten(c, leaves) for c in template)
-    return next(leaves)
-
-
 def _leaf_meta(leaf) -> dict:
     if isinstance(leaf, torch.Tensor):
         name = _DTYPE_NAME.get(leaf.dtype)
@@ -162,7 +118,7 @@ def _flatten_bytes(tree: PyTree) -> tuple[np.ndarray, list]:
     checkpoint *snapshot*, guaranteed to not alias any tensor or array the
     training loop may mutate after this returns.
     """
-    leaves = _tree_leaves(tree)
+    leaves = tree_leaves(tree)
     meta = [_leaf_meta(leaf) for leaf in leaves]
     flat = np.empty(sum(m["nbytes"] for m in meta), np.uint8)
     pos = 0
@@ -190,7 +146,7 @@ def _unflatten_bytes(template: PyTree, flat: np.ndarray, meta: list) -> PyTree:
         raw = torch.from_numpy(flat[pos:pos + n].copy())
         leaves.append(raw.view(dtype).reshape(m["shape"]))
         pos += n
-    return _tree_unflatten(template, iter(leaves))
+    return tree_unflatten(template, iter(leaves))
 
 
 class CheckpointFuture:

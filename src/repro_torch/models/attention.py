@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .common import ModelConfig, dense_init, full, rope
+from .common import ModelConfig, cache_device, dense_init, full, rope
 
 NEG_INF = -1e30
 
@@ -203,8 +203,9 @@ def _chunked_causal_attention(q, k, v, wo, cfg: ModelConfig,
 # cached decode
 # --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> KVCache:
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    device = cache_device(device)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 

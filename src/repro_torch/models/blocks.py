@@ -17,10 +17,12 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import stack_trees, tree_map
+
 from . import attention as attn_lib
 from . import mlp as mlp_lib
 from . import ssm as ssm_lib
-from .common import ModelConfig, full, rms_norm, stack_trees, tree_map
+from .common import ModelConfig, cache_device, full, rms_norm
 
 PyTree = Any
 
@@ -172,10 +174,12 @@ def prefill_stack(stack: list[PyTree], x: torch.Tensor, cfg: ModelConfig
 # decode with caches
 # --------------------------------------------------------------------------
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                device=None) -> list[PyTree]:
-    """Per-position stacked caches (leading R axis), matching init_stack.
-    Every leaf is a tensor of its own (zeros), so writing one slot of one
-    layer touches nothing else."""
+                device="cuda") -> list[PyTree]:
+    """Per-position stacked caches (leading R axis), matching init_stack,
+    on ``device`` (the card by default; ``meta`` allocates nothing). Every
+    leaf is a tensor of its own (zeros), so writing one slot of one layer
+    touches nothing else."""
+    device = cache_device(device)
     specs = build_period(cfg)
     repeats = cfg.num_layers // len(specs)
     caches = []

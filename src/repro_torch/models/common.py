@@ -103,39 +103,6 @@ class ModelConfig:
         return (i + 1) % self.local_global_period == 0
 
 
-# --------------------------------------------------------------------------
-# nests of tensors
-# --------------------------------------------------------------------------
-def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping its nesting: dicts, lists, tuples and named tuples;
-    ``None`` holds no leaf and stays ``None``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, *kids)
-                            for kids in zip(tree, *rest)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *kids) for kids in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree: PyTree) -> list:
-    """The leaves of ``tree`` in order (dicts by insertion order)."""
-    out = []
-    tree_map(out.append, tree)
-    return out
-
-
-def stack_trees(trees: list) -> PyTree:
-    """One nest whose leaves stack the matching leaves of ``trees`` along a
-    new leading axis (the reference's vmapped per-layer init)."""
-    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
-
-
 def make_generator(seed: int = 0,
                    device: str | torch.device = "cuda") -> torch.Generator:
     """A ``torch.Generator`` seeded with ``seed`` on ``device`` (the card
@@ -147,6 +114,14 @@ def make_generator(seed: int = 0,
 # --------------------------------------------------------------------------
 # init helpers
 # --------------------------------------------------------------------------
+def cache_device(device: str | torch.device = "cuda") -> torch.device:
+    """Where a cache is allocated: ``meta`` as it is (shapes and dtypes,
+    nothing allocated), anything else through ``resolve_device`` (the card
+    by default; raises on a host without CUDA)."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 def init_device(gen: Optional[torch.Generator]) -> torch.device:
     """Where parameters drawn from ``gen`` live: its device, or ``meta``
     (shapes and dtypes only, nothing allocated) without a generator."""

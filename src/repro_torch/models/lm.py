@@ -121,7 +121,8 @@ def decode_step(params, caches, tokens, index, cfg: ModelConfig):
     return logits, caches
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device="cuda"):
     return blocks.init_caches(cfg, batch, max_len, device=device)
 
 

@@ -15,8 +15,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.tree import tree_leaves
+
 from . import lm
-from .common import ModelConfig, tree_leaves
+from .common import ModelConfig
 
 PyTree = Any
 

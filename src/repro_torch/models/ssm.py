@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init, full
+from .common import ModelConfig, cache_device, dense_init, full
 
 
 class SSMParams(NamedTuple):
@@ -174,8 +174,10 @@ def ssm_forward_with_cache(p: SSMParams, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
-def init_ssm_cache(cfg: ModelConfig, batch: int, device=None) -> SSMCache:
+def init_ssm_cache(cfg: ModelConfig, batch: int,
+                   device="cuda") -> SSMCache:
     d_inner, heads, n, hp = _dims(cfg)
+    device = cache_device(device)
     return SSMCache(
         conv=torch.zeros((batch, 3, d_inner + 2 * n), dtype=cfg.param_dtype,
                          device=device),

@@ -13,7 +13,9 @@ slots over one shared, preallocated KV cache on the engine's device:
 
 Greedy decoding: each token is the argmax of the last logits. The model
 runs eagerly on ``device`` (the card by default); the engine never moves
-parameters between devices.
+parameters between devices. It keeps the milliseconds of each prefill and
+decode step (CUDA events on the card, the host clock on the host;
+``call_ms``).
 """
 from __future__ import annotations
 
@@ -21,15 +23,15 @@ import dataclasses
 import itertools
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
-from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.registry import ModelApi
+from repro_torch.tree import tree_leaves, tree_map
 
 from .telemetry import LatencyRecorder
 
@@ -61,8 +63,10 @@ class ServeEngine:
         self.slots: list[Optional[Request]] = [None] * max_batch
         self.lengths = np.zeros(max_batch, np.int32)
         self._rid = itertools.count()
-        self._decode = api.decode_step
-        self._prefill = api.prefill
+        # The most recent calls' times per kind, as LatencyRecorder keeps
+        # its most recent latencies.
+        self._times = {"prefill": deque(maxlen=8192),
+                       "decode": deque(maxlen=8192)}
         # Submit-to-completion wall latency per request — the same recorder
         # (and so the same p50/p99 meaning) as the degraded block-read
         # serving path (repro_torch.serve.telemetry).
@@ -89,6 +93,27 @@ class ServeEngine:
         return req
 
     # ------------------------------------------------------------------
+    def _call(self, kind: str, fn: Callable, *args):
+        """``fn(*args)``, its time kept under ``kind``."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._times[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        self._times[kind].append((start, end))
+        return out
+
+    def call_ms(self) -> dict:
+        """``{"prefill": [...], "decode": [...]}``: the milliseconds of each
+        recent call, oldest first (waits for the card's last call)."""
+        return {kind: [_elapsed_ms(t) for t in times]
+                for kind, times in self._times.items()}
+
     def _admit(self) -> None:
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.queue:
@@ -100,7 +125,8 @@ class ServeEngine:
                 batch["prefix_embeds"] = torch.zeros(
                     (1, self.cfg.frontend_tokens, self.cfg.d_model),
                     dtype=torch.bfloat16, device=self.device)
-            logits, row_caches = self._prefill(self.params, batch)
+            logits, row_caches = self._call("prefill", self.api.prefill,
+                                            self.params, batch)
             row_caches = blocks.pad_caches(row_caches, self.cfg, self.max_len)
             _write_slot(self.caches, row_caches, slot)
             self.slots[slot] = req
@@ -118,8 +144,9 @@ class ServeEngine:
         tokens = np.zeros((self.max_batch, 1), np.int64)
         for i in live:
             tokens[i, 0] = self.slots[i].out_tokens[-1]
-        logits, self.caches = self._decode(
-            self.params, self.caches, torch.from_numpy(tokens).to(self.device),
+        logits, self.caches = self._call(
+            "decode", self.api.decode_step, self.params, self.caches,
+            torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(self.lengths.astype(np.int64)).to(self.device))
         nxt = torch.argmax(logits[:, 0, :], dim=-1).cpu().numpy()
         for i in live:
@@ -144,6 +171,16 @@ class ServeEngine:
             if not self.queue and all(s is None for s in self.slots):
                 return
             self.step()
+
+
+def _elapsed_ms(t) -> float:
+    """A call's milliseconds: the host's reading, or the time
+    between its two CUDA events once the second has completed."""
+    if isinstance(t, float):
+        return t
+    start, end = t
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def _write_slot(caches, row_caches, slot: int) -> None:

@@ -48,9 +48,10 @@ from repro.models import registry as ref_registry  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.convert import (config_from_reference,  # noqa: E402
                                  params_from_reference)
-from repro_torch.models import blocks, lm, mlp, registry, ssm  # noqa: E402
-from repro_torch.models.common import (make_generator,  # noqa: E402
-                                       tree_leaves, tree_map)
+from repro_torch.models import (attention, blocks, lm, mlp,  # noqa: E402
+                                registry, ssm)
+from repro_torch.models.common import make_generator  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 DECODER_ARCHS = tuple(a for a in ref_configs.ARCHS
                       if a != "seamless_m4t_medium")
@@ -317,7 +318,7 @@ def test_ssm_decode_matches_forward():
     x = torch.randn((1, 32, cfg.d_model),
                     generator=make_generator(2, "cpu")).to(torch.bfloat16)
     full = ssm.ssm_forward(p, x, cfg).float().numpy()
-    cache = ssm.init_ssm_cache(cfg, 1)
+    cache = ssm.init_ssm_cache(cfg, 1, device="cpu")
     outs = []
     for t in range(32):
         o, cache = ssm.ssm_decode_step(p, x[:, t:t + 1], cache, cfg)
@@ -436,3 +437,38 @@ def test_init_params_defaults_to_the_card():
         pytest.skip("this host has a card")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_generator(0)
+
+
+@pytest.mark.parametrize("entry", ["api", "attention", "ssm"])
+def test_init_caches_defaults_to_the_card(entry):
+    """Caches land on the card unless asked for elsewhere: without CUDA the
+    default raises, while ``cpu`` and ``meta`` allocate where asked."""
+    cfg = configs.get_config("jamba_52b", smoke=True)
+    make = {"api": lambda **kw: configs.get_model("jamba_52b", smoke=True)
+            .init_caches(cfg, 1, 8, **kw),
+            "attention": lambda **kw: attention.init_cache(cfg, 1, 8, **kw),
+            "ssm": lambda **kw: ssm.init_ssm_cache(cfg, 1, **kw)}[entry]
+    for dev in ("cpu", "meta"):
+        assert {t.device.type for t in tree_leaves(make(device=dev))} == {dev}
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+
+
+def test_nest_leaves_pair_with_the_reference():
+    """The walker orders a nest's leaves as JAX's pytrees do (a dict by
+    sorted key, named tuples and lists in order), and ``tree_map`` refuses
+    nests that differ."""
+    _, _, rparams, _, _, pparams = _twin("jamba_52b")
+    want = jax.tree.leaves(rparams)
+    got = tree_leaves(pparams)
+    assert len(want) == len(got)
+    assert all(tuple(w.shape) == tuple(g.shape)
+               and np.array_equal(_np(w), _np(g)) for w, g in zip(want, got))
+    nest = {"b": [1, (2, 3)], "a": {"z": 4, "y": None, "x": 5}}
+    assert tree_leaves(nest) == jax.tree.leaves(nest)
+    assert tree_map(lambda a, b: a + b, nest, nest) == {
+        "a": {"x": 10, "y": None, "z": 8}, "b": [2, (4, 6)]}
+    with pytest.raises(ValueError):
+        tree_map(lambda a, b: a, nest, {"b": [1, (2, 3)], "a": {"z": 4}})

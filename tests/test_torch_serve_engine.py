@@ -42,6 +42,7 @@ from repro_torch.convert import (config_from_reference,  # noqa: E402
                                  params_from_reference)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import lm, registry  # noqa: E402
+from repro_torch.models.common import make_generator  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -159,6 +160,25 @@ def test_load_refuses_parameters_on_another_device():
     with pytest.raises(ValueError, match="meta"):
         engine.load(meta)
     assert engine.params is None
+
+
+def test_engine_keeps_a_time_per_call():
+    """``call_ms`` holds one time per prefill (one a request) and one per
+    decode step."""
+    api = get_model("qwen2.5-3b", smoke=True)
+    engine = ServeEngine(api, max_batch=2, max_len=32, device="cpu")
+    engine.load(api.init_params(make_generator(0, "cpu")))
+    prompts = _prompts(api.cfg.vocab_size, (5, 9, 7))
+    reqs = [engine.submit(p, max_new=3) for p in prompts]
+    steps = 0
+    while engine.step():
+        steps += 1
+    assert all(r.done for r in reqs)
+    ms = engine.call_ms()
+    assert len(ms["prefill"]) == len(prompts)
+    assert len(ms["decode"]) == steps > 0
+    assert all(isinstance(t, float) and t >= 0 for t in
+               ms["prefill"] + ms["decode"])
 
 
 @pytest.fixture
