@@ -113,16 +113,36 @@ Phases (any failure raises and the script exits non-zero):
    degraded ``restore`` byte for byte, and a fresh engine on the restored
    parameters giving 8a's tokens exactly (the GF(2^8) kernels'
    ``serve_model`` launches).
+9. Training a model (``[train]`` lines), after phase 8's model is
+   released. 9a: qwen2.5-3b at its published widths and depth (bf16
+   parameters drawn on the card, f32 AdamW moments: 37 GB of state with
+   the gradients) trains 6 steps of ``make_train_step(donate=True)`` with
+   remat on one card's slice of the reference's train_4k cell (B=1,
+   T=4096, ``SyntheticLM`` seed 0) at the reference command's optimizer
+   settings: finite losses and norms, the first loss within 1.0 of ln V,
+   the parameters changed; step ms (CUDA events), tokens/s, peak memory,
+   one profiled step, and the step's operations against the card's
+   peaks. 9b: one fp32 step of every SMOKE config (seamless included) on
+   the card against the host (loss, grad_norm, parameters within the
+   tests' bounds), and microbatches 1, 2 and 4 agreeing. 9c: the widths
+   at 2 layers trained 3 steps, ``save_async`` while the next runs, one
+   more; hosts 1 and 2 emptied and failed, ``restore``, the same 2 steps
+   again with deterministic algorithms: parameters and moments
+   bit-identical, losses equal (the GF(2^8) kernels' ``train``
+   launches). 9d: ``python -m repro_torch.launch.train`` (the reference
+   command's demo: 30 steps, an async save every 10, host 2 killed and
+   restored) in a subprocess on the card: exit 0 and falling losses.
 
-Each path (3, 4, 5, 6, 7a, 7b, 8c) runs with the kernel wrappers' launch
-counts set to 0 just before it and read just after, and fails if a kernel
-it runs was never launched. The line before the last is a JSON object with
-one entry per kernel (``launches`` is phase 3's count, ``launches_by_path``
-each path's, ``sharded`` and ``replay`` for 7a and 7b, ``serve_model`` for
-8c; the simulator's select and draws are plain torch on the card, and the
-model's layers stock torch operators, not kernels of this line); the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run
-outside a checkout, it fails and prints no result.
+Each path (3, 4, 5, 6, 7a, 7b, 8c, 9c) runs with the kernel wrappers'
+launch counts set to 0 just before it and read just after, and fails if a
+kernel it runs was never launched. The line before the last is a JSON
+object with one entry per kernel (``launches`` is phase 3's count,
+``launches_by_path`` each path's, ``sharded`` and ``replay`` for 7a and
+7b, ``serve_model`` for 8c, ``train`` for 9c; the simulator's select and
+draws are plain torch on the card, and the model's layers and the
+optimizer stock torch operators, not kernels of this line); the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run outside a
+checkout, it fails and prints no result.
 """
 from __future__ import annotations
 
@@ -279,7 +299,11 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
+    # Phase 9c's bit-exact restore runs cuBLAS deterministically, which
+    # needs this before the process's first cuBLAS handle.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -543,6 +567,21 @@ def main() -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del served
+
+    # ----------------------------------------------- 9. training a model
+    torch.cuda.empty_cache()
+    train_full_phase(np, torch, dev, smi)
+    torch.cuda.empty_cache()
+    host_card_train_phase(np, torch, dev)
+    workdir = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "_smoke"))
+    try:
+        checkpoint_train_phase(np, torch, dev, workdir, wrappers["gf"],
+                               by_path)
+        train_cli_phase(np, torch, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[smoke] phases 1-9 in {time.perf_counter() - t_start} s of "
+          f"the 1200 s limit (process start and imports aside)")
 
     s, m, k = big
     kms, pms, bms, by, dms = timings[big]
@@ -2033,15 +2072,16 @@ def run_engine(np, torch, api, params, dev, prompts, max_batch: int,
             "prefill_ms": call_ms["prefill"], "decode_ms": call_ms["decode"]}
 
 
-def profile_step(torch, fn) -> dict:
-    """One call of ``fn`` (after a warm-up call) under torch.profiler: its
-    wall, the device time of every operator it ran on the card, the number
-    of device kernels, the device's busy share of the wall and the top five
-    device operators by time."""
+def profile_step(torch, fn, warmup: bool = True) -> dict:
+    """One call of ``fn`` (after a warm-up call, unless ``warmup`` is
+    false) under torch.profiler: its wall, the device time of every
+    operator it ran on the card, the number of device kernels, the device's
+    busy share of the wall and the top five device operators by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2060,7 +2100,7 @@ def profile_step(torch, fn) -> dict:
     return {"wall_ms": wall * 1e3, "device_ms": busy,
             "device_kernels": kernels,
             "device_busy_share": busy / (wall * 1e3) if busy else None,
-            "top_device_ms": {name[:60]: ms for name, ms in top}}
+            "top_device_ms": [[name[:100], ms] for name, ms in top]}
 
 
 def serve_model_phase(np, torch, dev, smi: str, smoke: bool = False) -> dict:
@@ -2284,6 +2324,395 @@ def checkpoint_serve_phase(np, torch, dev, workdir: Path, served: dict,
            "phase_seconds": time.perf_counter() - t_phase}
     print("[serve-model] 8c from an erasure-coded checkpoint after losing "
           f"hosts {CKPT_HOSTS}: " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------------ phase 9: training a model
+# 9a: one card's slice of the reference's train_4k cell (a global batch of
+# 256 x 4096 tokens over its 256-chip pod: B=1, T=4096), from SyntheticLM
+# with seed 0, at the reference command's optimizer settings.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 1, 6
+TRAIN_OPT = {"peak_lr": 3e-3, "warmup_steps": 10, "decay_steps": 20}
+# The first loss against ln V: at init the final norm gives rms-1 features
+# and the tied embedding is N(0, 0.02^2), so the logits' spread is about
+# 0.02 * sqrt(d_model) (0.905 at d_model 2048) and the expected loss
+# ln V + 0.905^2 / 2 = ln V + 0.41; the bound admits that and refuses a
+# loss that is off by a scale (0, or tens).
+TRAIN_LOSS_SLACK = 1.0
+BF16_FLOPS_PER_S = 989e12               # H100 SXM dense bf16 tensor peak
+F32_FLOPS_PER_S = 67e12                 # H100 SXM f32 peak, no tensor cores
+# 9b: the card against the host, one fp32 step of every SMOKE config (the
+# bounds of tests/test_torch_train.py: loss 1e-5 and grad_norm 1e-4
+# relative; every parameter within 2 lr + 1e-6, the most a gradient near 0
+# whose sign differs can move it at step 1, and all but 1% within
+# 1e-3 lr), then microbatches 1, 2 and 4 on qwen2.5 SMOKE at the
+# reference's bounds (loss 2e-2, the first leaf 3e-2).
+TRAIN_HOST_LR = 1e-3
+# 9c: qwen2.5-3b's widths cut to 2 layers (for the run's time): the
+# parameter count and the train state's bytes (bf16 parameters, f32
+# moments, the int32 step).
+TRAIN_CKPT_LAYERS = 2
+TRAIN_CKPT_PARAMS = 465_320_960
+TRAIN_CKPT_BYTES = 4_653_209_604
+TRAIN_CKPT_STEP = 3                     # steps before the save
+# 9d: the reference train command's demo (its test_loss_decreases bound).
+TRAIN_CLI = ("--steps", "30", "--batch", "4", "--seq", "64", "--ckpt-every",
+             "10", "--ckpt-async", "--kill-host", "2")
+
+
+def train_flops(cfg, params: int, tokens: int, seq: int) -> dict:
+    """A remat step's operations: 8 N T for the products with the
+    parameters (forward, the rematerialised forward, the backward's two),
+    the attention's QK^T and PV as computed (the full square, 4 B T^2 H hd
+    a layer forward, four times), and the tied head's f32 share of the
+    first term (no remat: three passes of 2 T V d). The attention scores
+    and the head run in f32 without tensor cores; the rest in bf16."""
+    hd = cfg.resolved_head_dim
+    attn = 16 * cfg.num_layers * tokens * seq * cfg.num_heads * hd
+    head = 6 * tokens * cfg.vocab_size * cfg.d_model
+    bf16 = 8 * params * tokens - 8 * tokens * cfg.vocab_size * cfg.d_model
+    f32 = attn + head
+    return {"total": bf16 + f32, "bf16": bf16, "f32": f32,
+            "bound_ms": (bf16 / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S)
+            * 1e3}
+
+
+def train_batch(np, cfg, seq: int, batch: int, seed: int = SEED):
+    from repro_torch.data.pipeline import DataConfig, make_pipeline
+
+    return make_pipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=seed, frontend=cfg.frontend, frontend_tokens=cfg.frontend_tokens,
+        d_model=cfg.d_model))
+
+
+def train_full_phase(np, torch, dev, smi: str, smoke: bool = False) -> dict:
+    """Phase 9a: ``MODEL_ARCH`` at its published widths and depth (its
+    SMOKE config with ``smoke``, at T=64), bf16 parameters drawn on
+    ``dev`` and f32 moments, ``TRAIN_STEPS`` steps of
+    ``make_train_step(donate=True)`` with remat at B=1, T=4096: finite
+    losses and norms, the first loss near ln V, the parameters changed.
+    Prints step ms (CUDA events, median of the steps after the first),
+    tokens/s, peak memory, one profiled step and the step's operations
+    against the card's peaks."""
+    from repro_torch.configs import get_model
+    from repro_torch.models.common import make_generator
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    api = get_model(MODEL_ARCH, smoke=smoke)
+    cfg = api.cfg
+    count = api.param_count()
+    check(smoke or count == MODEL_PARAMS,
+          f"{MODEL_ARCH}: {count} parameters, the reference has "
+          f"{MODEL_PARAMS}")
+    seq = 64 if smoke else TRAIN_SEQ
+    data = train_batch(np, cfg, seq, TRAIN_BATCH)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(make_generator(SEED, dev))
+    opt = adamw_init(params)
+    init_peak = torch.cuda.max_memory_allocated() if on_card else None
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((params, opt)))
+    # Slices of two matrices (an update of lr ~ 1e-3 leaves a bf16 gain
+    # of 1.0 where it is: under half its step).
+    probes = {"embed": lambda p: p["embed"][:4],
+              "wq": lambda p: p["stack"][0].mixer.wq[0, :8]}
+    before = {k: f(params).clone() for k, f in probes.items()}
+    step_fn = make_train_step(api, TrainConfig(opt=AdamWConfig(**TRAIN_OPT)),
+                              donate=True)
+    state = {"params": params, "opt": opt}
+    rows = []
+
+    def step(i: int) -> None:
+        p, o, m = step_fn(state["params"], state["opt"], data.batch_at(i))
+        state.update(params=p, opt=o)
+        rows.append({k: float(v) for k, v in m.items()})
+
+    ms = []
+    for i in range(TRAIN_STEPS - 1):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(i)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            step(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    profile = {}
+    if on_card:
+        profile = profile_step(torch, lambda: step(TRAIN_STEPS - 1),
+                               warmup=False)
+    else:
+        step(TRAIN_STEPS - 1)
+    losses = [r["loss"] for r in rows]
+    norms = [r["grad_norm"] for r in rows]
+    check(len(rows) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses + norms),
+        f"losses {losses}, grad norms {norms}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) < TRAIN_LOSS_SLACK,
+          f"first loss {losses[0]} against ln V = {ln_v}")
+    params = state["params"]
+    changed = {k: not torch.equal(v, probes[k](params))
+               for k, v in before.items()}
+    check(all(changed.values()), f"parameters unchanged: {changed}")
+    check(int(state["opt"]["step"]) == TRAIN_STEPS
+          and state["opt"]["step"].dtype == torch.int32,
+          f"optimizer step {state['opt']['step']}")
+    step_ms = statistics.median(ms[1:])
+    tokens = TRAIN_BATCH * seq
+    flops = train_flops(cfg, count, tokens, seq)
+    out = {"arch": MODEL_ARCH if not smoke else cfg.name,
+           "param_count": count, "state_bytes": state_bytes,
+           "batch": TRAIN_BATCH, "seq": seq, "losses": losses,
+           "grad_norms": norms, "lrs": [r["lr"] for r in rows],
+           "first_loss_minus_ln_v": losses[0] - ln_v, "step_ms": ms,
+           "step_ms_median": step_ms,
+           "tokens_per_second": tokens / (step_ms / 1e3),
+           "flops": flops, "achieved_tflops": flops["total"] / step_ms / 1e9,
+           "bf16_peak_share": flops["total"] / BF16_FLOPS_PER_S
+           / (step_ms / 1e3),
+           "bound_share": flops["bound_ms"] / step_ms,
+           "init_peak_memory": init_peak,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if on_card else None),
+           "profile": profile, "card": smi,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("[train] 9a " + json.dumps(out))
+    return out
+
+
+def step_gap(want_p, got_p, lr: float) -> tuple[float, float]:
+    """(largest parameter difference, share of elements past 1e-3 lr)."""
+    from repro_torch.tree import tree_leaves
+
+    worst, far, total = 0.0, 0, 0
+    for a, b in zip(tree_leaves(want_p), tree_leaves(got_p)):
+        diff = (a.float() - b.float().to(a.device)).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        far += int((diff > 1e-3 * lr).sum())
+        total += diff.numel()
+    return worst, far / max(total, 1)
+
+
+def host_card_train_phase(np, torch, dev) -> dict:
+    """Phase 9b: one fp32 ``make_train_step`` step of every SMOKE config
+    (seamless included), weights made on the host from the seed and moved
+    to ``dev``, against the same step on the host, at the bounds of
+    ``TRAIN_HOST_LR``'s note; then microbatches 1, 2 and 4 on qwen2.5
+    SMOKE (bf16) on ``dev``. f32 products run in full f32 (no TF32 during
+    the phase; the flags are restored after it)."""
+    from repro_torch.configs import ARCHS, get_config, get_model
+    from repro_torch.models import build
+    from repro_torch.models.common import make_generator
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    host = torch.device("cpu")
+    tc = TrainConfig(opt=AdamWConfig(peak_lr=TRAIN_HOST_LR, warmup_steps=1))
+    rows = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in ARCHS:
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      param_dtype=torch.float32)
+            api = build(cfg)
+            params = api.init_params(make_generator(SEED, host))
+            moved = tree_map(lambda t: t.to(dev), params)
+            batch = train_batch(np, cfg, 32, 2).batch_at(0)
+            step = make_train_step(api, tc)
+            want_p, _, want = step(params, adamw_init(params), batch)
+            got_p, _, got = step(moved, adamw_init(moved), batch)
+            check(all(t.device == dev for t in tree_leaves(got_p)),
+                  f"{arch}: the step's parameters left {dev}")
+            loss = abs(float(got["loss"]) - float(want["loss"])) \
+                / abs(float(want["loss"]))
+            gnorm = abs(float(got["grad_norm"]) - float(want["grad_norm"])) \
+                / float(want["grad_norm"])
+            lr = float(want["lr"])
+            worst, far = step_gap(want_p, got_p, lr)
+            check(loss <= 1e-5 and gnorm <= 1e-4,
+                  f"{arch}: loss {loss}, grad_norm {gnorm} relative on {dev}")
+            check(worst <= 2 * lr + 1e-6 and far <= 0.01,
+                  f"{arch}: parameters differ by {worst} (lr {lr}), "
+                  f"{far} of them past 1e-3 lr")
+            rows[arch] = {"loss_rel": loss, "grad_norm_rel": gnorm,
+                          "param_max_diff": worst,
+                          "param_share_past_1e-3_lr": far}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    api = get_model(MODEL_ARCH, smoke=True)
+    params = api.init_params(make_generator(SEED, dev))
+    state = adamw_init(params)
+    batch = train_batch(np, api.cfg, 32, 8, seed=1).batch_at(0)
+    micro = {}
+    for n in (1, 2, 4):
+        step = make_train_step(api, TrainConfig(
+            opt=AdamWConfig(peak_lr=TRAIN_HOST_LR), microbatches=n))
+        p2, _, m = step(params, state, batch)
+        micro[n] = (float(m["loss"]), tree_leaves(p2)[0].float())
+    for n in (2, 4):
+        check(abs(micro[n][0] - micro[1][0]) < 2e-2
+              and float((micro[n][1] - micro[1][1]).abs().max()) < 3e-2,
+              f"microbatches {n} against 1: losses {micro[n][0]} and "
+              f"{micro[1][0]}")
+    out = {"archs": rows, "microbatch_losses": {n: v[0] for n, v in
+                                                micro.items()},
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("[train] 9b card against host, fp32: " + json.dumps(out))
+    return out
+
+
+def checkpoint_train_phase(np, torch, dev, workdir: Path, wrappers,
+                           by_path: dict, smoke: bool = False) -> dict:
+    """Phase 9c: ``MODEL_ARCH``'s widths at ``TRAIN_CKPT_LAYERS`` layers
+    (SMOKE with ``smoke``) trained ``TRAIN_CKPT_STEP`` steps in place,
+    ``save_async`` under the default ``CheckpointConfig`` while the next
+    step runs, one more step (the reference trajectory); then the block
+    files of hosts 1 and 2 emptied and the hosts failed, a degraded
+    ``restore`` moved back to ``dev``, and the same two steps again:
+    parameters and moments bit-identical, losses equal. Deterministic
+    algorithms are on for the phase (restored after it). The GF(2^8)
+    wrappers count from 0 over the phase into ``by_path[name]["train"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.ftx import CheckpointConfig, CheckpointManager
+    from repro_torch.models import build
+    from repro_torch.models.common import make_generator
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MODEL_ARCH, smoke=smoke)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_CKPT_LAYERS)
+    api = build(cfg)
+    count = api.param_count()
+    check(smoke or count == TRAIN_CKPT_PARAMS,
+          f"{count} parameters at {TRAIN_CKPT_LAYERS} layers, expected "
+          f"{TRAIN_CKPT_PARAMS}")
+    default = CheckpointConfig()
+    st = default.store
+    nbytes = 10 * count + 4
+    need = nbytes * (st.k + st.r + st.p) // st.k + (1 << 30)
+    free = shutil.disk_usage(workdir).free
+    check(free > need, f"the train checkpoint needs {need} bytes of disk, "
+          f"{free} free")
+    data = train_batch(np, cfg, 64 if smoke else TRAIN_SEQ, TRAIN_BATCH)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        step_fn = make_train_step(api, TrainConfig(
+            opt=AdamWConfig(**TRAIN_OPT)), donate=True)
+        params = api.init_params(make_generator(SEED, dev))
+        opt = adamw_init(params)
+        for i in range(TRAIN_CKPT_STEP):
+            params, opt, _ = step_fn(params, opt, data.batch_at(i))
+        for fn in wrappers:
+            fn.launches = 0
+        cm = CheckpointManager(workdir / "train", default, device=dev)
+        fut = cm.save_async(TRAIN_CKPT_STEP, {"params": params, "opt": opt})
+        ref_losses, during = [], 0
+        for i in (TRAIN_CKPT_STEP, TRAIN_CKPT_STEP + 1):
+            params, opt, m = step_fn(params, opt, data.batch_at(i))
+            ref_losses.append(float(m["loss"]))
+            during += not fut.done()
+        info = fut.result()
+        check(smoke or info["bytes"] == TRAIN_CKPT_BYTES,
+              f"checkpoint of {info['bytes']} bytes, expected "
+              f"{TRAIN_CKPT_BYTES}")
+        step_dir = workdir / "train" / f"step{TRAIN_CKPT_STEP}"
+        lost = [p for h in CKPT_HOSTS
+                for p in (step_dir / f"node{h}").glob("*.blk")]
+        for p in lost:
+            p.write_bytes(b"")
+        cm.fail_hosts(TRAIN_CKPT_STEP, CKPT_HOSTS)
+        restored, tele = cm.restore(TRAIN_CKPT_STEP,
+                                    {"params": params, "opt": opt})
+        check(tele["degraded_blocks"] > 0,
+              f"restore after losing hosts {CKPT_HOSTS}: no degraded block")
+        re_params = tree_map(lambda t: t.to(dev), restored["params"])
+        re_opt = tree_map(lambda t: t.to(dev), restored["opt"])
+        del restored
+        check(re_opt["step"].dtype == torch.int32
+              and int(re_opt["step"]) == TRAIN_CKPT_STEP,
+              f"restored optimizer step {re_opt['step']}")
+        re_losses = []
+        for i in (TRAIN_CKPT_STEP, TRAIN_CKPT_STEP + 1):
+            re_params, re_opt, m = step_fn(re_params, re_opt,
+                                           data.batch_at(i))
+            re_losses.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    for fn in wrappers:
+        by_path[fn.__name__]["train"] = fn.launches
+    pairs = [torch.equal(a, b) and a.dtype == b.dtype for a, b in
+             zip(tree_leaves((params, opt)),
+                 tree_leaves((re_params, re_opt)))]
+    check(all(pairs) and len(pairs) == len(tree_leaves((params, opt))),
+          f"{pairs.count(False)} tensors differ after the restored steps")
+    check(re_losses == ref_losses,
+          f"losses {re_losses} after the restore, {ref_losses} before")
+    k1 = wrappers[0]
+    check(dev.type != "cuda" or k1.launches > 0,
+          f"{k1.__name__} was never launched on the train path")
+    del params, opt, re_params, re_opt
+    shutil.rmtree(workdir / "train", ignore_errors=True)
+    out = {"param_count": count, "bytes": info["bytes"],
+           "stripes": info["stripes"],
+           "snapshot_ms": fut.snapshot_seconds * 1e3,
+           "encode_seconds": info["encode_seconds"],
+           "steps_during_encode": during,
+           "encode_launches": info["encode"]["launches"],
+           "lost_block_files": len(lost), "restore": tele,
+           "losses": ref_losses, "bit_identical": all(pairs),
+           "launches": {fn.__name__: fn.launches for fn in wrappers},
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("[train] 9c checkpoint, hosts "
+          f"{CKPT_HOSTS} lost, restored, continued: " + json.dumps(out))
+    return out
+
+
+def train_cli_phase(np, torch, dev, workdir: Path) -> dict:
+    """Phase 9d: ``python -m repro_torch.launch.train`` with
+    ``TRAIN_CLI`` in a subprocess on ``dev``: exit 0, ``[ftx ] restored``
+    and ``done: 30 steps`` printed, and the last printed loss at least 0.5
+    under the first."""
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+           "--ckpt-dir", str(workdir / "cli"), "--device", dev.type]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    check(run.returncode == 0,
+          f"the train command exited {run.returncode}: {run.stderr[-2000:]}")
+    lines = run.stdout.splitlines()
+    losses = [float(re.search(r"loss=([0-9.]+)", line).group(1))
+              for line in lines if line.startswith("step ")]
+    check(any(line.startswith("  [ftx ] restored") for line in lines)
+          and any(line.startswith("done: 30 steps") for line in lines),
+          f"the train command printed {run.stdout[-2000:]}")
+    check(len(losses) >= 2 and losses[-1] < losses[0] - 0.5,
+          f"the train command's losses {losses} do not fall")
+    out = {"command": " ".join(cmd[1:]), "losses": losses,
+           "lines": [line for line in lines if not line.startswith("step ")],
+           "phase_seconds": time.perf_counter() - t_phase}
+    print("[train] 9d " + json.dumps(out))
     return out
 
 

@@ -4,8 +4,7 @@ The port's copy of ``src/repro/configs``. Each ``<arch>.py`` module defines
 ``CONFIG`` (the full published config) and ``SMOKE`` (a reduced same-family
 config for CPU smoke runs), with ``param_dtype`` a torch dtype. The shape
 grid is the assignment's four cells; ``long_500k`` is only valid for
-sub-quadratic archs (``LONG_OK``). ``seamless_m4t_medium`` (encoder-decoder)
-is carried as data; ``get_model`` refuses it until that family is ported.
+sub-quadratic archs (``LONG_OK``).
 """
 from __future__ import annotations
 

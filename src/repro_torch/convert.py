@@ -12,8 +12,8 @@ derive it from the coefficients (``CompiledPlan.bit_coeffs``).
 Checkpoints do carry tensors: :func:`state_from_reference` turns the
 reference's state tree of numpy arrays into the same nesting of torch
 tensors, so both packages can checkpoint one state. Models carry them too:
-:func:`params_from_reference` turns the reference's parameter (or cache)
-nest into the port's, with each of its named tuples as the port's class of
+:func:`params_from_reference` turns the reference's parameter, cache or
+optimizer-state nest into the port's, with each of its named tuples as the port's class of
 the same name, and :func:`config_from_reference` its ``ModelConfig``, so
 both packages can run one model on the same weights.
 """
@@ -34,6 +34,7 @@ from repro_torch.ftx.stripestore import StripeStore
 from repro_torch.models.attention import AttnParams, KVCache
 from repro_torch.models.blocks import LayerParams
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.encdec import DecLayer, EncLayer
 from repro_torch.models.mlp import MLPParams, MoEParams
 from repro_torch.models.ssm import SSMCache, SSMParams
 from repro_torch.tree import tree_map
@@ -41,7 +42,7 @@ from repro_torch.tree import tree_map
 _PLAN_META = {"RepairPlan": RepairPlan, "MultiRepairPlan": MultiRepairPlan}
 _MODEL_TUPLES = {cls.__name__: cls for cls in (
     AttnParams, KVCache, MLPParams, MoEParams, SSMParams, SSMCache,
-    LayerParams)}
+    LayerParams, EncLayer, DecLayer)}
 
 
 def _fields(obj, cls):
@@ -109,9 +110,13 @@ def params_from_reference(tree, *, device: str | torch.device = "cuda"):
     reference's named tuples) as the port holds them: the same nesting,
     each named tuple as the port's class of the same name
     (``AttnParams``, ``MLPParams``, ``MoEParams``, ``SSMParams``,
-    ``LayerParams``; ``KVCache`` and ``SSMCache`` for a cache nest), and
-    each leaf (a numpy or JAX array, bf16 included) as a tensor of the same
-    dtype, shape and bytes on ``device``."""
+    ``LayerParams``, ``EncLayer``, ``DecLayer``; ``KVCache`` and
+    ``SSMCache`` for a cache nest), and each leaf (a numpy or JAX array,
+    bf16 included) as a tensor of the same dtype, shape and bytes on
+    ``device``. A cache nest and an AdamW state (``adamw_init``'s
+    ``{"m", "v", "step"}``: moments nested as the parameters, ``step`` a
+    0-d int32 tensor) cross the same way, so both packages can step from
+    one state."""
     dev = resolve_device(device)
     return tree_map(lambda leaf: _tensor_of(leaf, dev), tree,
                     retype=lambda cls: _MODEL_TUPLES[cls.__name__])

@@ -24,10 +24,14 @@ from .schedule import (  # noqa: F401
     schedule_group,
 )
 from .sharding import (  # noqa: F401
+    DATA_AXES,
+    DEFAULT_RULES,
     Mesh,
     MeshRules,
     current_rules,
     make_mesh,
+    opt_state_sharding,
+    shard_activation,
     with_rules,
 )
 from .stripes import (  # noqa: F401

@@ -10,7 +10,13 @@ the axes of a device mesh, with divisibility degradation: an axis is
 assigned only if it exists in the mesh, is not already claimed by an
 earlier dimension, and evenly divides what remains. The port keeps that
 resolution and the ambient-context API (``with_rules``/``current_rules``)
-so the store, engine and scheduler read the same spans as the reference.
+so the store, engine and scheduler read the same spans as the reference,
+and the train step derives the same parameter, moment and batch specs.
+
+A spec is a tuple with one entry per dimension, each entry the tuple of
+mesh axes that dimension takes (``()``: replicated), where the reference
+has a ``PartitionSpec``. The port has no GSPMD: :func:`shard_activation`
+resolves an activation's spec and leaves the tensor as it is.
 """
 from __future__ import annotations
 
@@ -22,11 +28,25 @@ from typing import Iterator, Mapping, Optional, Sequence
 
 import torch
 
-# Logical-axis -> candidate mesh axes, tried left to right: the
-# reference's entry for the one logical axis the stripe system shards.
+# Logical-axis -> candidate mesh axes, tried left to right. Absent, claimed
+# or indivisible axes are skipped (degradation); an empty tuple is an inert
+# axis that only shards when a rule override maps it somewhere.
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("data", "pod"),
     "stripes": ("data", "pod"),
+    "seq": (),
+    "kv_seq": (),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "ff": ("model",),
+    "experts": ("model",),
+    "expert_ff": ("model",),
+    "inner": ("model",),
+    "vocab": ("model",),
 }
+
+# Data-parallel axes used by the ZeRO/FSDP extension (opt_state_sharding).
+DATA_AXES = ("data", "pod")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,4 +161,45 @@ def _resolve(shape: Sequence[int], names: Sequence[Optional[str]],
             used.add(ax)
             remaining //= size
         entries.append(tuple(picked))
+    return tuple(entries)
+
+
+def shard_activation(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
+    """The reference's activation constraint: ``names`` resolve under the
+    ambient rules (none outside ``with_rules``), and ``x`` comes back as it
+    is, since the port places no tensor by a spec."""
+    mr = _ACTIVE.get()
+    if mr is not None:
+        _resolve(x.shape, names, mr)
+    return x
+
+
+def opt_state_sharding(spec: Sequence[tuple], shape: Sequence[int],
+                       mr: MeshRules) -> tuple:
+    """ZeRO/FSDP extension: spread free data-parallel axes over ``spec``.
+
+    Optimizer moments (and FSDP'd parameters) replicate along whatever the
+    parameter spec leaves unsharded; this assigns the mesh's unclaimed
+    data axes (:data:`DATA_AXES`) to the largest still-replicated divisible
+    dimension, largest dimension first. Returns a spec in this module's
+    form, one tuple of axes per dimension of ``shape``.
+    """
+    axis_sizes = dict(mr.mesh.shape)
+    entries = [tuple(e) for e in spec] + [()] * (len(shape) - len(spec))
+    entries = entries[:len(shape)]
+    used = {ax for e in entries for ax in e}
+    free = [ax for ax in DATA_AXES if ax in axis_sizes and ax not in used]
+    for i in sorted((i for i, e in enumerate(entries) if not e),
+                    key=lambda i: -int(shape[i])):
+        if not free:
+            break
+        picked, remaining = [], int(shape[i])
+        for ax in list(free):
+            if remaining % axis_sizes[ax] != 0:
+                continue
+            picked.append(ax)
+            free.remove(ax)
+            remaining //= axis_sizes[ax]
+        if picked:
+            entries[i] = tuple(picked)
     return tuple(entries)

@@ -199,6 +199,27 @@ def _chunked_causal_attention(q, k, v, wo, cfg: ModelConfig,
     return torch.einsum("bshk,hkd->bsd", ctx, wo)
 
 
+def cross_attention(p: AttnParams, x: torch.Tensor, mem_k: torch.Tensor,
+                    mem_v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (B,T,KV,hd);
+    no RoPE and no mask."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    if p.bq is not None:
+        q = q + p.bq
+    probs = torch.softmax(_gqa_scores(q, mem_k, cfg), dim=-1)
+    return _gqa_out(probs, mem_v, p.wo)
+
+
+def project_memory_kv(p: AttnParams, mem: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory (B,T,d) projected to cross-attention K and V."""
+    k = torch.einsum("btd,dgk->btgk", mem, p.wk)
+    v = torch.einsum("btd,dgk->btgk", mem, p.wv)
+    if p.bk is not None:
+        k, v = k + p.bk, v + p.bv
+    return k, v
+
+
 # --------------------------------------------------------------------------
 # cached decode
 # --------------------------------------------------------------------------

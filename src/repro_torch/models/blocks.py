@@ -6,8 +6,14 @@ period 1; gemma3 uses a 6-layer period (5 sliding-window + 1 global
 attention); jamba an 8-layer period (7 Mamba + 1 attention, MoE on odd
 positions). Parameters and KV/SSM caches stack along a leading R axis per
 position, as the reference's do, and the depth runs as a Python loop over
-the R repeats where the reference scans. Nothing here takes a gradient, so
-there is no rematerialisation.
+the R repeats where the reference scans. Each stacked leaf is split into
+its repeats with one ``torch.unbind`` per pass, so a backward stacks each
+leaf's gradients once (indexing ``a[r]`` would give every repeat a
+backward that zero-fills the whole stacked shape). With ``remat`` (the
+reference's ``jax.checkpoint`` of each period) every period runs under
+``torch.utils.checkpoint``, which keeps only the period's input and
+recomputes the rest in the backward; it takes effect only while autograd
+records.
 """
 from __future__ import annotations
 
@@ -16,8 +22,10 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.tree import stack_trees, tree_map
+from repro_torch.tree import (stack_trees, tree_leaves, tree_map,
+                              tree_unflatten)
 
 from . import attention as attn_lib
 from . import mlp as mlp_lib
@@ -128,9 +136,21 @@ def apply_layer(spec: LayerSpec, p: LayerParams, x: torch.Tensor,
 # --------------------------------------------------------------------------
 # stacked periods
 # --------------------------------------------------------------------------
-def _repeat(tree: PyTree, r: int) -> PyTree:
-    """Repeat ``r`` of a stacked nest (a view of every leaf)."""
-    return tree_map(lambda a: a[r], tree)
+def unstack(tree: PyTree) -> list[PyTree]:
+    """A stacked nest as one nest per repeat (views), with one
+    ``torch.unbind`` per leaf."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    repeats = len(parts[0]) if parts else 0
+    return [tree_unflatten(tree, (p[r] for p in parts))
+            for r in range(repeats)]
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``, rematerialised in the backward when ``remat`` and
+    autograd records (the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def init_stack(gen, cfg: ModelConfig) -> list[PyTree]:
@@ -142,32 +162,43 @@ def init_stack(gen, cfg: ModelConfig) -> list[PyTree]:
             for spec in specs]
 
 
-def forward_stack(stack: list[PyTree], x: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+def forward_stack(stack: list[PyTree], x: torch.Tensor, cfg: ModelConfig,
+                  remat: bool = True) -> torch.Tensor:
     specs = build_period(cfg)
-    for r in range(stack[0].norm1.shape[0]):
-        for pos, spec in enumerate(specs):
-            x = apply_layer(spec, _repeat(stack[pos], r), x, cfg)
+
+    def period(h, layers):
+        for spec, p in zip(specs, layers):
+            h = apply_layer(spec, p, h, cfg)
+        return h
+
+    for layers in zip(*map(unstack, stack)):
+        x = remat_call(period, remat, x, layers)
     return x
 
 
-def prefill_stack(stack: list[PyTree], x: torch.Tensor, cfg: ModelConfig
-                  ) -> tuple[torch.Tensor, list[PyTree]]:
+def prefill_stack(stack: list[PyTree], x: torch.Tensor, cfg: ModelConfig,
+                  remat: bool = True) -> tuple[torch.Tensor, list[PyTree]]:
     """Forward pass that also emits decode caches for every layer."""
     specs = build_period(cfg)
-    per_pos = [[] for _ in specs]
-    for r in range(stack[0].norm1.shape[0]):
-        for pos, spec in enumerate(specs):
-            p = _repeat(stack[pos], r)
-            hn = rms_norm(x, p.norm1, cfg.norm_eps)
+
+    def period(h, layers):
+        caches = []
+        for spec, p in zip(specs, layers):
+            hn = rms_norm(h, p.norm1, cfg.norm_eps)
             if spec.mixer == "ssm":
                 out, c = ssm_lib.ssm_forward_with_cache(p.mixer, hn, cfg)
             else:
                 out, c = attn_lib.prefill_attention(
                     p.mixer, hn, cfg, window=_window(spec, cfg))
-            x = _ffn(spec, p, x + out, cfg)
-            per_pos[pos].append(c)
-    return x, [stack_trees(cs) for cs in per_pos]
+            h = _ffn(spec, p, h + out, cfg)
+            caches.append(c)
+        return h, caches
+
+    per_period = []
+    for layers in zip(*map(unstack, stack)):
+        x, caches = remat_call(period, remat, x, layers)
+        per_period.append(caches)
+    return x, [stack_trees(cs) for cs in zip(*per_period)]
 
 
 # --------------------------------------------------------------------------
@@ -227,10 +258,10 @@ def decode_stack(stack: list[PyTree], caches: list[PyTree], x: torch.Tensor,
     """One-token step through the whole depth; returns (x, new caches)."""
     specs = build_period(cfg)
     per_pos = [[] for _ in specs]
-    for r in range(stack[0].norm1.shape[0]):
+    for layers, layer_caches in zip(zip(*map(unstack, stack)),
+                                    zip(*map(unstack, caches))):
         for pos, spec in enumerate(specs):
-            p = _repeat(stack[pos], r)
-            c = _repeat(caches[pos], r)
+            p, c = layers[pos], layer_caches[pos]
             hn = rms_norm(x, p.norm1, cfg.norm_eps)
             if spec.mixer == "ssm":
                 out, c = ssm_lib.ssm_decode_step(p.mixer, hn, c, cfg)

@@ -147,6 +147,16 @@ def full(gen: Optional[torch.Generator], shape, value: float,
     return torch.full(shape, value, dtype=dtype, device=init_device(gen))
 
 
+def stacked_logical(names):
+    """Logical names of a stacked nest (names tuples, named tuples of them,
+    ``None``): a leading None for the stacking axis on every leaf."""
+    if names is None:
+        return None
+    if hasattr(names, "_fields"):
+        return type(names)(*(stacked_logical(n) for n in names))
+    return (None,) + tuple(names)
+
+
 # --------------------------------------------------------------------------
 # primitives
 # --------------------------------------------------------------------------

@@ -21,7 +21,7 @@ import torch
 
 from . import blocks
 from .common import (ModelConfig, cross_entropy, dense_init, embed_tokens,
-                     full, lm_logits, rms_norm)
+                     full, lm_logits, rms_norm, stacked_logical)
 
 PyTree = Any
 
@@ -41,19 +41,10 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> PyTree:
     return params
 
 
-def _prepend_repeat_axis(names):
-    """Logical names of a stacked leaf: a leading None for the R axis."""
-    if names is None:
-        return None
-    if hasattr(names, "_fields"):
-        return type(names)(*(_prepend_repeat_axis(n) for n in names))
-    return (None,) + tuple(names)
-
-
 def param_logical(cfg: ModelConfig) -> PyTree:
     """Logical axis names, mirroring init_params structure. Stacked layer
     leaves get a leading None (the repeat axis)."""
-    stack_logical = [_prepend_repeat_axis(blocks.layer_param_logical(spec, cfg))
+    stack_logical = [stacked_logical(blocks.layer_param_logical(spec, cfg))
                      for spec in blocks.build_period(cfg)]
     out = {
         "embed": ("vocab", None),
@@ -82,18 +73,20 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x, mask
 
 
-def forward(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def forward(params, batch, cfg: ModelConfig,
+            remat: bool = True) -> torch.Tensor:
     """Token-level logits (B, S_total, V)."""
     x, _ = _embed_inputs(params, batch, cfg)
-    x = blocks.forward_stack(params["stack"], x, cfg)
+    x = blocks.forward_stack(params["stack"], x, cfg, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(x, params["embed"], None)
 
 
 def train_loss(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    """The training loss, forward only (training comes with a later slice)."""
+    """Mean token cross-entropy; every period rematerialised in the
+    backward."""
     x, mask = _embed_inputs(params, batch, cfg)
-    x = blocks.forward_stack(params["stack"], x, cfg)
+    x = blocks.forward_stack(params["stack"], x, cfg, remat=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mask is not None:
         f = x.shape[1] - batch["labels"].shape[1]

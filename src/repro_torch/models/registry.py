@@ -4,8 +4,8 @@ server and the smoke runs.
 The port of ``src/repro/models/registry.py``. Parameters are drawn from a
 ``torch.Generator`` (``init_params(gen)``) on the generator's device; the
 abstract forms build on the ``meta`` device, so counting the parameters of
-a 300B+ configuration allocates nothing. The encoder-decoder family is not
-ported yet (ROADMAP, queue 1): ``build`` refuses it.
+a 300B+ configuration allocates nothing. ``build`` takes the
+decoder-only families (``lm``) and the encoder-decoder one (``encdec``).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.tree import tree_leaves
 
-from . import lm
+from . import encdec, lm
 from .common import ModelConfig
 
 PyTree = Any
@@ -40,6 +40,9 @@ class ModelApi:
         return self.init_params(None)
 
     def abstract_caches(self, batch: int, max_len: int) -> PyTree:
+        if self.cfg.family == "encdec":
+            return self.init_caches(self.cfg, batch, max_len, max_len,
+                                    device="meta")
         return self.init_caches(self.cfg, batch, max_len, device="meta")
 
     def param_count(self) -> int:
@@ -65,19 +68,16 @@ class ModelApi:
 
 
 def build(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            f"(ROADMAP.md, queue 1: it comes with the training slice)")
+    mod = encdec if cfg.family == "encdec" else lm
     return ModelApi(
         cfg=cfg,
-        init_params=lambda gen: lm.init_params(gen, cfg),
-        param_logical=lambda: lm.param_logical(cfg),
-        train_loss=lambda params, batch: lm.train_loss(params, batch, cfg),
-        prefill=lambda params, batch: lm.prefill(params, batch, cfg),
-        decode_step=lambda params, caches, tokens, index: lm.decode_step(
+        init_params=lambda gen: mod.init_params(gen, cfg),
+        param_logical=lambda: mod.param_logical(cfg),
+        train_loss=lambda params, batch: mod.train_loss(params, batch, cfg),
+        prefill=lambda params, batch: mod.prefill(params, batch, cfg),
+        decode_step=lambda params, caches, tokens, index: mod.decode_step(
             params, caches, tokens, index, cfg),
-        init_caches=lm.init_caches,
-        sample_batch=lambda batch, seq, gen, **kw: lm.sample_batch(
+        init_caches=mod.init_caches,
+        sample_batch=lambda batch, seq, gen, **kw: mod.sample_batch(
             cfg, batch, seq, gen, **kw),
     )

@@ -81,14 +81,17 @@ def tree_unflatten(template: PyTree, leaves: Iterator) -> PyTree:
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
-             retype: Callable[[type], type] = _same) -> PyTree:
+             retype: Callable[[type], type] = _same,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> PyTree:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest`` (nests of the same structure), keeping ``tree``'s nesting;
-    each named tuple is rebuilt as ``retype`` of its class. Raises
-    ``ValueError`` where a nest of ``rest`` differs from ``tree``."""
+    each named tuple is rebuilt as ``retype`` of its class. A node of
+    ``tree`` for which ``is_leaf`` holds is a leaf (``fn`` then gets the
+    matching subtrees of ``rest``). Raises ``ValueError`` where a nest of
+    ``rest`` differs from ``tree``."""
     if tree is None:
         return None
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return fn(tree, *rest)
     rest_kids = [_children(r) for r in rest]
@@ -96,7 +99,7 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
         if rk is None or _keys(r) != _keys(tree):
             raise ValueError(f"a nest of {type(r).__name__} does not match "
                              f"one of {type(tree).__name__}")
-    return _rebuild(tree, [tree_map(fn, *ks, retype=retype)
+    return _rebuild(tree, [tree_map(fn, *ks, retype=retype, is_leaf=is_leaf)
                            for ks in zip(kids, *rest_kids)], retype)
 
 

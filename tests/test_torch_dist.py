@@ -430,7 +430,69 @@ def multi_device_cases(pkg: str, root) -> dict:
     """Every multi-device case of this module on ``pkg``; JSON-able."""
     api = _api(pkg)
     return {"layout": _layout_cases(api), "engine": _engine_cases(api),
-            "store": _store_cases(api, Path(root))}
+            "store": _store_cases(api, Path(root)),
+            "logical": _logical_cases(pkg, api)}
+
+
+def _axes(spec) -> list:
+    """A spec as a list of mesh axes per dimension, from either package's
+    form (a ``PartitionSpec``, or tuples of axes)."""
+    return [[] if e is None else [e] if isinstance(e, str) else list(e)
+            for e in getattr(spec, "spec", spec)]
+
+
+def _spec_leaves(pkg: str, tree) -> list:
+    if pkg == "repro":
+        return [_axes(s) for s in jax.tree.leaves(tree)]
+    from repro_torch.train.train_step import _is_spec
+    from repro_torch.tree import tree_map
+
+    out = []
+    tree_map(lambda s: out.append(_axes(s)), tree, is_leaf=_is_spec)
+    return out
+
+
+# (shape, logical names) of tests/test_sharding.py's 2x4 resolutions
+RESOLVE_2X4 = (((8, 8), ("batch", "ff")), ((6, 3), ("batch", "heads")),
+               ((3, 8), ("batch", "ff")),
+               ((3, 16, 32), ("experts", None, "expert_ff")),
+               ((4, 16, 32), ("experts", None, "expert_ff")))
+KV_SEQ_2X4 = (((1, 1024, 4, 64), ("batch", "kv_seq", "kv_heads", None)),
+              ((4, 1024, 4, 64), ("batch", "kv_seq", "kv_heads", None)))
+TRAIN_ARCHS = (("qwen25_3b", False), ("arctic_480b", False),
+               ("arctic_480b", True), ("jamba_52b", True),
+               ("seamless_m4t_medium", False))
+
+
+def _logical_cases(pkg: str, api) -> dict:
+    """``tests/test_sharding.py``'s 2x4 cases (resolution, degradation,
+    ``opt_state_sharding``, a rule override) and ``train_shardings`` of
+    SMOKE configs (FSDP on and off) on both meshes."""
+    import dataclasses
+    import importlib
+
+    configs = importlib.import_module(f"{pkg}.configs")
+    build = importlib.import_module(f"{pkg}.models.registry").build
+    ts = importlib.import_module(f"{pkg}.train.train_step")
+    sh = api.sharding
+    out = {}
+    with sh.with_rules(api.mesh((2, 4))) as mr:
+        out["resolve"] = [_axes(sh._resolve(shape, names, mr))
+                          for shape, names in RESOLVE_2X4]
+        out["opt_state"] = [_axes(sh.opt_state_sharding((), shape, mr))
+                            for shape in ((7, 4), (7, 5))]
+    with sh.with_rules(api.mesh((2, 4)), {"kv_seq": ("data",)}) as mr:
+        out["kv_seq"] = [_axes(sh._resolve(shape, names, mr))
+                         for shape, names in KV_SEQ_2X4]
+    for shape in MESHES:
+        for arch, fsdp in TRAIN_ARCHS:
+            cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                                      fsdp_params=fsdp)
+            batch = configs.input_specs(arch, "train_4k", smoke=True)["batch"]
+            with sh.with_rules(api.mesh(shape)) as mr:
+                out[f"train/{shape}/{arch}/{fsdp}"] = _spec_leaves(
+                    pkg, ts.train_shardings(build(cfg), mr, batch))
+    return out
 
 
 def _reference(fn: str, root: Path) -> subprocess.Popen:
@@ -478,6 +540,81 @@ def _same(got, want, path=""):
         assert got == pytest.approx(want, rel=1e-12, abs=0), path
     else:
         assert got == want, path
+
+
+# ------------------------------------------- logical-axis rules and specs
+def test_resolve_divisible_matches_reference():
+    from repro_torch.dist.sharding import _resolve
+
+    with ref_sharding.with_rules(jax.make_mesh((1, 1), ("data", "model"))) \
+            as rmr, with_rules(Mesh({"data": 1, "model": 1})) as pmr:
+        got = _resolve((32, 64), ("batch", "ff"), pmr)
+        assert got == (("data",), ("model",))
+        assert _axes(got) == _axes(ref_sharding._resolve(
+            (32, 64), ("batch", "ff"), rmr))
+
+
+def test_axis_used_once_like_reference():
+    from repro_torch.dist.sharding import _resolve
+
+    with ref_sharding.with_rules(jax.make_mesh((1, 1), ("data", "model"))) \
+            as rmr, with_rules(Mesh({"data": 1, "model": 1})) as pmr:
+        got = _resolve((4, 4), ("heads", "ff"), pmr)   # both want "model"
+        assert got[0] == ("model",) and got[1] == ()
+        assert _axes(got) == _axes(ref_sharding._resolve(
+            (4, 4), ("heads", "ff"), rmr))
+
+
+def test_opt_state_extends_like_reference():
+    from repro_torch.dist import opt_state_sharding
+
+    with ref_sharding.with_rules(jax.make_mesh((1, 1), ("data", "model"))) \
+            as rmr, with_rules(Mesh({"data": 1, "model": 1})) as pmr:
+        got = opt_state_sharding(((), ("model",)), (8, 4), pmr)
+        assert got[0] == ("data",)
+        want = ref_sharding.opt_state_sharding(
+            jax.sharding.PartitionSpec(None, "model"), (8, 4), rmr)
+        assert _axes(got) == _axes(want)
+
+
+def test_logical_rules_and_shard_activation_match_reference():
+    """The reference's rules and data axes; ``shard_activation`` returns
+    its input, inside a ``with_rules`` block or outside one."""
+    from repro_torch.dist import DATA_AXES, DEFAULT_RULES, shard_activation
+
+    assert DEFAULT_RULES == ref_sharding.DEFAULT_RULES
+    assert DATA_AXES == ref_sharding.DATA_AXES
+    x = torch.zeros(4, 6)
+    assert shard_activation(x, "batch", None) is x
+    with with_rules(Mesh({"data": 1, "model": 1})):
+        assert shard_activation(x, "batch", "heads") is x
+
+
+def test_resolve_indivisible_degrades_like_reference(cases8):
+    """``tests/test_sharding.py::test_resolve_indivisible_degrades`` on a
+    2x4 mesh: the reference's values, in both packages."""
+    want, got = cases8[0]["logical"], cases8[1]["logical"]
+    assert got["resolve"] == want["resolve"] == [
+        [["data"], ["model"]], [["data"], []], [[], ["model"]],
+        [[], [], ["model"]], [["model"], [], []]]
+    assert got["opt_state"] == want["opt_state"] == [[[], ["data"]],
+                                                     [[], []]]
+
+
+def test_rule_overrides_and_freed_axes_like_reference(cases8):
+    want, got = cases8[0]["logical"], cases8[1]["logical"]
+    assert got["kv_seq"] == want["kv_seq"] == [
+        [[], ["data"], ["model"], []], [["data"], [], ["model"], []]]
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_train_shardings_match_reference(cases8, shape):
+    """Parameter, moment and batch specs of SMOKE configs (FSDP on and
+    off) under the 8x1 and 4x2 meshes."""
+    want, got = cases8[0]["logical"], cases8[1]["logical"]
+    for arch, fsdp in TRAIN_ARCHS:
+        key = f"train/{shape}/{arch}/{fsdp}"
+        assert got[key] == want[key], key
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")

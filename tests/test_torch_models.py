@@ -69,6 +69,7 @@ PARAM_COUNTS = {
     "arctic_480b": (476_620_899_328, 15_354_938_368),
     "jamba_52b": (51_217_050_112, 11_757_038_080),
     "mamba2_27b": (2_702_235_136, 2_702_235_136),
+    "seamless_m4t_medium": (615_788_544, 615_788_544),
 }
 FP32_LOGITS = 1e-4
 FP32_DECODE = 1e-3
@@ -364,7 +365,7 @@ def _leaf_specs(tree) -> list:
     return out
 
 
-@pytest.mark.parametrize("arch", DECODER_ARCHS)
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
 def test_full_config_params_match_reference(arch):
     api = configs.get_model(arch)
     ref_api = ref_configs.get_model(arch)
@@ -372,8 +373,7 @@ def test_full_config_params_match_reference(arch):
     assert all(t.device.type == "meta" for t in tree_leaves(params))
     assert _leaf_specs(params) == _leaf_specs(ref_api.abstract_params())
     assert (api.param_count(), api.active_param_count()) \
-        == PARAM_COUNTS[arch]
-    assert (ref_api.param_count(), ref_api.active_param_count()) \
+        == (ref_api.param_count(), ref_api.active_param_count()) \
         == PARAM_COUNTS[arch]
     caches = api.abstract_caches(4, 128)
     assert _leaf_specs(caches) == _leaf_specs(ref_api.abstract_caches(4, 128))
@@ -392,7 +392,7 @@ def _plain(node):
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_param_logical_matches_reference(smoke):
-    for arch in DECODER_ARCHS:
+    for arch in ref_configs.ARCHS:
         got = configs.get_model(arch, smoke).param_logical()
         want = ref_configs.get_model(arch, smoke).param_logical()
         assert _plain(got) == _plain(want), arch
@@ -418,7 +418,8 @@ def test_configs_match_reference():
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", ["qwen25_3b", "internvl2_1b", "jamba_52b"])
+@pytest.mark.parametrize("arch", ["qwen25_3b", "internvl2_1b", "jamba_52b",
+                                  "seamless_m4t_medium"])
 def test_input_specs_match_reference(arch, shape):
     got = configs.input_specs(arch, shape, smoke=True)
     want = ref_configs.input_specs(arch, shape, smoke=True)
@@ -426,10 +427,185 @@ def test_input_specs_match_reference(arch, shape):
     assert all(t.device.type == "meta" for t in tree_leaves(got))
 
 
-def test_encdec_is_refused():
-    assert configs.get_config("seamless-m4t-medium").family == "encdec"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_model("seamless-m4t-medium")
+# ------------------------------------------------------ encoder-decoder
+def _encdec_batches(cfg, seq: int, seed: int = 0):
+    """The same numpy-seeded tokens, labels and bf16 frames for both
+    packages."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    frames = jnp.asarray(rng.standard_normal((B, seq, cfg.d_model)),
+                         jnp.float32).astype(jnp.bfloat16)
+    rb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+          "frames": frames}
+    pb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+          "frames": _torch(frames)}
+    return rb, pb
+
+
+def _pad_self_kv(caches, pad):
+    """Grow the self-attention KV (axis 2: length) by ``pad`` zeros."""
+    self_kv, mem = caches
+    if isinstance(self_kv.k, torch.Tensor):
+        grow = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+        return attention.KVCache(grow(self_kv.k), grow(self_kv.v)), mem
+    return jax.tree.map(lambda a: jnp.pad(
+        a, [(0, 0), (0, 0), (0, pad), (0, 0), (0, 0)]), self_kv), mem
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encdec_matches_reference(dtype):
+    """seamless SMOKE: train_loss, prefill (logits and both caches) and a
+    decode step on the padded caches, in both packages on the same
+    weights; fp32 and bf16 at the decoder-only bounds."""
+    rcfg, rapi, rp, pcfg, papi, pp = _twin("seamless_m4t_medium", dtype)
+    fp32 = dtype == "float32"
+    rb, pb = _encdec_batches(rcfg, S + 1)
+    rloss = float(jax.jit(rapi.train_loss)(rp, rb))
+    ploss = float(papi.train_loss(pp, pb))
+    assert abs(rloss - ploss) <= (FP32_LOGITS if fp32 else BF16) * rloss
+    pre = lambda b: {"tokens": b["tokens"][:, :S], "frames": b["frames"]}
+    rl, rc = jax.jit(rapi.prefill)(rp, pre(rb))
+    pl, pc = papi.prefill(pp, pre(pb))
+    assert _rel(rl, pl) < (FP32_LOGITS if fp32 else BF16)
+    for want, got in _cache_pairs(rc, pc):
+        assert got.dtype == torch.bfloat16
+        assert _within_a_bf16_step(want, got) if fp32 \
+            else _rel(want, got) < BF16
+    rc, pc = _pad_self_kv(rc, 8), _pad_self_kv(pc, 8)
+    rd, rc2 = jax.jit(rapi.decode_step)(rp, rc, rb["tokens"][:, S:S + 1],
+                                        jnp.int32(S))
+    pd, pc2 = papi.decode_step(pp, pc, pb["tokens"][:, S:S + 1], S)
+    assert _rel(rd, pd) < (FP32_DECODE if fp32 else BF16)
+    for want, got in _cache_pairs(rc2, pc2):
+        assert _within_a_bf16_step(want, got) if fp32 \
+            else _rel(want, got) < BF16
+
+
+def test_encdec_consistency():
+    """The reference's ``test_encdec_consistency`` on the port's own
+    weights (bf16): prefill(S) and decode(S) against the full decoder."""
+    from repro_torch.models import encdec
+    from repro_torch.models.common import embed_tokens, lm_logits, rms_norm
+
+    api = configs.get_model("seamless_m4t_medium", smoke=True)
+    cfg = api.cfg
+    gen = make_generator(0, "cpu")
+    params = api.init_params(gen)
+    batch = api.sample_batch(B, 49, gen)
+    mem = encdec._encode(params, batch["frames"], cfg)
+    x = embed_tokens(params["embed"], batch["tokens"])
+    x = encdec._decode_stack(params, x, mem, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits_full = lm_logits(x, params["embed"], None)
+    pre = {"tokens": batch["tokens"][:, :48], "frames": batch["frames"]}
+    logits_pre, caches = api.prefill(params, pre)
+    assert _rel(logits_full[:, 47], logits_pre[:, 0]) < 0.02
+    logits_dec, _ = api.decode_step(params, _pad_self_kv(caches, 8),
+                                    batch["tokens"][:, 48:49], 48)
+    assert _rel(logits_full[:, 48], logits_dec[:, 0]) < 0.02
+
+
+def test_encdec_builds_and_its_caches_default_to_the_card():
+    api = configs.get_model("seamless-m4t-medium")
+    assert api.cfg.family == "encdec"
+    caches = api.abstract_caches(2, 16)
+    assert {t.device.type for t in tree_leaves(caches)} == {"meta"}
+    smoke = configs.get_model("seamless-m4t-medium", smoke=True)
+    got = smoke.init_caches(smoke.cfg, 1, 8, 4, device="cpu")
+    assert [tuple(t.shape) for t in tree_leaves(got)] == [
+        (2, 1, 8, 4, 32)] * 2 + [(2, 1, 4, 4, 32)] * 2
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke.init_caches(smoke.cfg, 1, 8, 4)
+
+
+# ------------------------------------------------------------ gradients
+def _count(monkeypatch, module, name) -> list:
+    """Count the calls of ``module.name`` from here on."""
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(torch.is_grad_enabled())
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_stacks_rematerialise_under_remat(monkeypatch, remat):
+    """With ``remat`` every layer of a period runs again in the backward
+    (the reference's ``jax.checkpoint``); without it, once. The gradients
+    are the same either way. Under ``no_grad`` nothing is recomputed."""
+    api = configs.get_model("gemma3_12b", smoke=True)
+    cfg = dataclasses.replace(api.cfg, param_dtype=torch.float32)
+    api = registry.build(cfg)
+    params = api.init_params(make_generator(0, "cpu"))
+    batch = api.sample_batch(B, 40, make_generator(1, "cpu"))
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    calls = _count(monkeypatch, blocks, "apply_layer")
+    loss = torch.nn.functional.cross_entropy(
+        lm.forward(params, batch, cfg, remat=remat).flatten(0, 1),
+        batch["labels"].flatten().long())
+    assert len(calls) == cfg.num_layers
+    grads = torch.autograd.grad(loss, leaves)
+    assert len(calls) == cfg.num_layers * (2 if remat else 1)
+    monkeypatch.undo()
+    loss_plain = torch.nn.functional.cross_entropy(
+        lm.forward(params, batch, cfg, remat=not remat).flatten(0, 1),
+        batch["labels"].flatten().long())
+    for g, h in zip(grads, torch.autograd.grad(loss_plain, leaves)):
+        assert torch.allclose(g, h, rtol=1e-5, atol=1e-7)
+    # prefill: recomputed in a backward with remat, never under no_grad
+    calls = _count(monkeypatch, attention, "prefill_attention")
+    x = torch.randn(B, 16, cfg.d_model, requires_grad=True)
+    out, _ = blocks.prefill_stack(params["stack"], x, cfg, remat=remat)
+    torch.autograd.grad(out.sum(), x)
+    assert len(calls) == cfg.num_layers * (2 if remat else 1)
+    with torch.no_grad():
+        blocks.prefill_stack(params["stack"], torch.randn(B, 16, cfg.d_model),
+                             cfg, remat=remat)
+    assert len(calls) == cfg.num_layers * (3 if remat else 2)
+
+
+def test_encdec_stacks_rematerialise(monkeypatch):
+    """``train_loss`` of the encoder-decoder recomputes every encoder and
+    decoder layer in the backward, as the reference's ``jax.checkpoint``
+    of both scans does."""
+    from repro_torch.models import encdec
+
+    api = configs.get_model("seamless_m4t_medium", smoke=True)
+    cfg = api.cfg
+    params = api.init_params(make_generator(0, "cpu"))
+    batch = api.sample_batch(B, 24, make_generator(1, "cpu"))
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    enc = _count(monkeypatch, encdec, "_bidir_attention")
+    dec = _count(monkeypatch, attention, "cross_attention")
+    loss = api.train_loss(params, batch)
+    assert (len(enc), len(dec)) == (cfg.encoder_layers, cfg.num_layers)
+    grads = torch.autograd.grad(loss, leaves)
+    assert (len(enc), len(dec)) == (2 * cfg.encoder_layers,
+                                    2 * cfg.num_layers)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
+def test_smoke_train_loss_reaches_every_parameter(arch):
+    """The reference's ``test_smoke_train_loss`` on the port (a finite
+    loss on every SMOKE config), and a gradient on every leaf."""
+    api = configs.get_model(arch, smoke=True)
+    gen = make_generator(0, "cpu")
+    params = api.init_params(gen)
+    batch = api.sample_batch(2, 64, gen)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss = api.train_loss(params, batch)
+    assert np.isfinite(float(loss.detach()))
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(g.shape == p.shape and bool(torch.isfinite(g).all())
+               for g, p in zip(grads, leaves))
 
 
 def test_init_params_defaults_to_the_card():
