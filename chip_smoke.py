@@ -132,13 +132,31 @@ Phases (any failure raises and the script exits non-zero):
    launches). 9d: ``python -m repro_torch.launch.train`` (the reference
    command's demo: 30 steps, an async save every 10, host 2 killed and
    restored) in a subprocess on the card: exit 0 and falling losses.
+10. The analysis tools (``[tools]`` lines). 10a: ``dryrun.run`` over all
+   40 (arch x shape) cells at their published widths on ``meta``, one
+   count a cell recorded for the 16x16 and 2x16x16 meshes: 40 records
+   each, 33 live, the 7 long_500k skips, no error; ``roofline.build_table``
+   of each, 40 rows, every live row with compute_s and memory_s above 0
+   and 0 < useful < 2; the single mesh's table printed. 10b:
+   ``perf_iter`` on qwen2.5-3b at its published widths and depth, phase
+   9a's B=1, T=4096, variants ``baseline`` and ``flash2048`` from the same
+   parameters, moments and batch, a warm-up and 3 timed steps each:
+   finite losses, first losses within 0.02 relative, the peak under the
+   card's memory; step ms, peak, the counted FLOPs by dtype and the share
+   of the roofline bound printed. 10c (started before 10a and read after
+   it): ``examples/torch_quickstart.py``, ``torch_repair_demo.py`` and
+   ``torch_placement_demo.py``, each in a subprocess on the card: exit 0
+   and the reference examples' lines.
 
-Each path (3, 4, 5, 6, 7a, 7b, 8c, 9c) runs with the kernel wrappers'
-launch counts set to 0 just before it and read just after, and fails if a
-kernel it runs was never launched. The line before the last is a JSON
+Each path (3, 4, 5, 6, 7a, 7b, 8c, 9c, 10c) runs with the kernel
+wrappers' launch counts set to 0 just before it and read just after (10c:
+the three example processes' own counts, summed), and fails if a kernel
+it runs was never launched. The line before the last is a JSON
 object with one entry per kernel (``launches`` is phase 3's count,
 ``launches_by_path`` each path's, ``sharded`` and ``replay`` for 7a and
-7b, ``serve_model`` for 8c, ``train`` for 9c; the simulator's select and
+7b, ``serve_model`` for 8c, ``train`` for 9c, ``examples`` for 10c; the
+dry run, the roofline and perf_iter launch none of these kernels; the
+simulator's select and
 draws are plain torch on the card, and the model's layers and the
 optimizer stock torch operators, not kernels of this line); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA card, or run outside a
@@ -164,9 +182,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 STRIPES = 64
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
-INT8_TENSOR_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 # The reference's counts for this store (held by tests/test_torch_store.py
 # against the JAX package): failed nodes -> (patterns, blocks_read,
 # repairs_local, repairs_global).
@@ -270,7 +285,9 @@ def bound_ms(s: int, m: int, k: int, b: int) -> tuple[float, str]:
     """Least time for (m,k) x (S,k,B): every input byte read once and every
     output byte written once at the HBM rate, against one 32-bit operation
     per GF multiply-accumulate at the card's non-tensor peak."""
-    mem = (s * (k + m) * b + m * k) / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.roofline import HBM_BW, SCALAR_OPS_PER_S
+
+    mem = (s * (k + m) * b + m * k) / HBM_BW * 1e3
     ops = s * m * k * b / SCALAR_OPS_PER_S * 1e3
     return _larger(mem, ops)
 
@@ -283,9 +300,11 @@ def bit_bound_ms(kernel: str, s: int, bm, p: int) -> tuple[float, str]:
     operations (R8', K8' padded to the kernel's tiles) at the tensor-core
     peak."""
     from repro_torch.kernels.bitmatrix_encode import mod2_padded_shape
+    from repro_torch.launch.roofline import (HBM_BW, INT8_TENSOR_OPS_PER_S,
+                                             SCALAR_OPS_PER_S)
 
     r8, k8 = bm.shape
-    mem = (s * (k8 + r8) * p + r8 * k8) / HBM_BYTES_PER_S * 1e3
+    mem = (s * (k8 + r8) * p + r8 * k8) / HBM_BW * 1e3
     if kernel == "bitmatrix_encode":
         ones = int((bm != 0).sum())
         ops = s * ones * p / 4 / SCALAR_OPS_PER_S * 1e3
@@ -580,7 +599,22 @@ def main() -> None:
         train_cli_phase(np, torch, dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    print(f"[smoke] phases 1-9 in {time.perf_counter() - t_start} s of "
+
+    # -------------------------------------------- 10. the analysis tools
+    # The dry run's records and perf_iter's rows stay in TOOLS_DIR.
+    t10 = time.perf_counter()
+    examples = start_examples()
+    try:
+        dryrun_phase(TOOLS_DIR)
+        examples_phase(examples, by_path, t10)
+    finally:
+        for proc in examples.values():
+            proc.kill()
+    torch.cuda.empty_cache()
+    perf = perf_iter_phase(torch, dev, smi)
+    (TOOLS_DIR / "perf_iter.json").write_text(json.dumps(perf, indent=1))
+    print(f"[tools] phase 10 in {time.perf_counter() - t10} s")
+    print(f"[smoke] phases 1-10 in {time.perf_counter() - t_start} s of "
           f"the 1200 s limit (process start and imports aside)")
 
     s, m, k = big
@@ -2339,8 +2373,6 @@ TRAIN_OPT = {"peak_lr": 3e-3, "warmup_steps": 10, "decay_steps": 20}
 # ln V + 0.905^2 / 2 = ln V + 0.41; the bound admits that and refuses a
 # loss that is off by a scale (0, or tens).
 TRAIN_LOSS_SLACK = 1.0
-BF16_FLOPS_PER_S = 989e12               # H100 SXM dense bf16 tensor peak
-F32_FLOPS_PER_S = 67e12                 # H100 SXM f32 peak, no tensor cores
 # 9b: the card against the host, one fp32 step of every SMOKE config (the
 # bounds of tests/test_torch_train.py: loss 1e-5 and grad_norm 1e-4
 # relative; every parameter within 2 lr + 1e-6, the most a gradient near 0
@@ -2362,15 +2394,23 @@ TRAIN_CLI = ("--steps", "30", "--batch", "4", "--seq", "64", "--ckpt-every",
 
 def train_flops(cfg, params: int, tokens: int, seq: int) -> dict:
     """A remat step's operations: 8 N T for the products with the
-    parameters (forward, the rematerialised forward, the backward's two),
-    the attention's QK^T and PV as computed (the full square, 4 B T^2 H hd
-    a layer forward, four times), and the tied head's f32 share of the
-    first term (no remat: three passes of 2 T V d). The attention scores
-    and the head run in f32 without tensor cores; the rest in bf16."""
+    parameters (forward, the rematerialised forward, the backward's two)
+    less the rematerialised forward's MLP down projection (2 T d d_ff a
+    layer: ``torch.utils.checkpoint`` stops recomputing a period after its
+    last activation the backward saves, the down projection's input), the
+    attention's QK^T and PV as computed (the full square, 4 B T^2 H hd a
+    layer forward, four times), and the tied head's f32 share of the first
+    term (no remat: three passes of 2 T V d). The attention scores and the
+    head run in f32 without tensor cores; the rest in bf16.
+    ``repro_torch.launch.dryrun`` counts the same step."""
+    from repro_torch.launch.roofline import BF16_FLOPS_PER_S, F32_FLOPS_PER_S
+
     hd = cfg.resolved_head_dim
     attn = 16 * cfg.num_layers * tokens * seq * cfg.num_heads * hd
     head = 6 * tokens * cfg.vocab_size * cfg.d_model
-    bf16 = 8 * params * tokens - 8 * tokens * cfg.vocab_size * cfg.d_model
+    down = 2 * tokens * cfg.num_layers * cfg.d_ff * cfg.d_model
+    bf16 = (8 * params * tokens - 8 * tokens * cfg.vocab_size * cfg.d_model
+            - down)
     f32 = attn + head
     return {"total": bf16 + f32, "bf16": bf16, "f32": f32,
             "bound_ms": (bf16 / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S)
@@ -2396,6 +2436,7 @@ def train_full_phase(np, torch, dev, smi: str, smoke: bool = False) -> dict:
     tokens/s, peak memory, one profiled step and the step's operations
     against the card's peaks."""
     from repro_torch.configs import get_model
+    from repro_torch.launch.roofline import BF16_FLOPS_PER_S
     from repro_torch.models.common import make_generator
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.train_step import TrainConfig, make_train_step
@@ -2713,6 +2754,246 @@ def train_cli_phase(np, torch, dev, workdir: Path) -> dict:
            "lines": [line for line in lines if not line.startswith("step ")],
            "phase_seconds": time.perf_counter() - t_phase}
     print("[train] 9d " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------- phase 10: the analysis tools
+# 10a: every (arch x shape) cell at its published widths, counted once on
+# ``meta`` and recorded for the 16x16 and the 2x16x16 mesh: 40 records a
+# mesh, 33 live and the 7 full-attention long_500k skips.
+TOOLS_CELLS, TOOLS_LIVE = 40, 33
+TOOLS_DIR = ROOT / "chiprun_out" / "analysis"
+# 10b: phase 9a's slice of train_4k (B=1, T=4096) under perf_iter's
+# variants, each from the same parameters, moments and batch. The first
+# steps' bf16 losses agree within 1e-3 relative and their gradient norms
+# within 1e-2: at initialisation the loss sits near ln V whatever the
+# attention computes, the gradient does not (a wrong tile path moves the
+# norm by tens of percent).
+TOOLS_ARCH, TOOLS_SHAPE = "qwen2.5-3b", "train_4k"
+TOOLS_VARIANTS = ("baseline", "flash2048")
+TOOLS_STEPS = 3
+TOOLS_LOSS_REL = 1e-3
+TOOLS_GNORM_REL = 1e-2
+# 10c: the examples' printed lines, the reference examples' lines (held to
+# them by tests/test_torch_examples.py).
+EXAMPLE_LINES = {
+    "torch_quickstart.py": [
+        "== CP-Azure (24,2,2) vs Azure LRC (24,2,2) ==",
+        "azure     repair G_r: read 24 blocks via global",
+        "cp-azure  repair G_r: read 2 blocks via cascade",
+        "cp-azure  repair D1+L1: 13 blocks, all_local=True (paper: 13 vs 24 "
+        "for Azure)",
+        "",
+        "== metrics (paper Table III, P5 column) ==",
+        "azure     ADRC= 12.00 ARC1= 12.86",
+        "cp-azure  ADRC= 12.00 ARC1= 11.36",
+        "",
+        "== bytes-level repair through the PyTorch/CUDA codec ==",
+        "lost D1+L2 -> read 4 blocks, bit-exact=True"],
+    "torch_repair_demo.py": [
+        "azure       blocks read -> {'data': 6, 'local-parity': 6, 'G_r': 12, "
+        "'D1+L1': 12}",
+        "cp-azure    blocks read -> {'data': 6, 'local-parity': 2, 'G_r': 2, "
+        "'D1+L1': 7}",
+        "cp-uniform  blocks read -> {'data': 6, 'local-parity': 2, 'G_r': 2, "
+        "'D1+L1': 7}"],
+    "torch_placement_demo.py": [
+        "80 nodes / 8 domains, 640 stripes, 8-device mesh",
+        "policy        scheduled  contiguous  uplift",
+        "contiguous        0.125       0.125   1.00x",
+        "spread            0.317       0.119   2.67x",
+        "round_robin       0.125       0.125   1.00x"],
+}
+# Runs an example as ``__main__`` and then prints the GF(2^8) wrappers'
+# launch counts of that process on its standard error.
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "path = sys.argv[1]\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(path, run_name='__main__')\n"
+    "from repro_torch.kernels import gf256_matmul as gm\n"
+    "print(json.dumps({f.__name__: f.launches for f in "
+    "(gm.gf256_matmul_batched, gm.gf256_matmul)}), file=sys.stderr)\n")
+
+
+def dryrun_phase(workdir: Path) -> dict:
+    """Phase 10a: ``dryrun.run`` over every cell for both production meshes
+    (one ``meta`` count a cell; its records and progress lines go to
+    ``workdir``), then ``roofline.build_table`` of each: 40 records and
+    rows, 33 live, the 7 skips all long_500k, no error, and every live row
+    with compute_s > 0, memory_s > 0, 0 < useful < 2. Prints the single
+    mesh's table."""
+    from repro_torch.configs import ALIASES, SHAPES
+    from repro_torch.launch import dryrun, roofline
+
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    with open(workdir / "dryrun.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        results = dryrun.run(dryrun.MESH_NAMES, list(ALIASES), list(SHAPES),
+                             force=True, results_dir=workdir)
+    out = {}
+    for mesh, recs in results.items():
+        errors = sorted(k for k, v in recs.items() if "error" in v)
+        skips = sorted(k for k, v in recs.items() if "skip" in v)
+        check(len(recs) == TOOLS_CELLS and not errors
+              and len(skips) == TOOLS_CELLS - TOOLS_LIVE
+              and all(k.endswith("|long_500k") for k in skips),
+              f"dry run on the {mesh} mesh: {len(recs)} records, errors "
+              f"{errors}, skips {skips}")
+        rows = roofline.build_table(mesh, workdir)
+        live = [r for r in rows if not r.get("skip")]
+        bad = [(r["arch"], r["shape"]) for r in live
+               if not (r["compute_s"] > 0 and r["memory_s"] > 0
+                       and 0 < r["useful"] < 2)]
+        check(len(rows) == TOOLS_CELLS and len(live) == TOOLS_LIVE
+              and not bad, f"roofline on the {mesh} mesh: {len(rows)} rows, "
+              f"{len(live)} live, out of bounds {bad}")
+        out[mesh] = {"records": len(recs), "live": len(live),
+                     "count_s": sum(v.get("compile_s", 0)
+                                    for v in recs.values())}
+        if mesh == "single":
+            print(roofline.render(rows))
+            out["rows"] = live
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"[tools] 10a dry run: {json.dumps({m: out[m] for m in results})}; "
+          f"{out['phase_seconds']} s")
+    return out
+
+
+def card_count(torch, state) -> dict:
+    """One ``baseline`` step of ``TOOLS_ARCH`` on the card under the dry
+    run's ``CostMode``: its FLOPs by dtype, and the products that read the
+    stacked MLP down projections and give d_model-wide outputs (each
+    layer's forward down projection, and each one the remat recomputes)."""
+    from torch.utils.flop_counter import flop_registry
+
+    from repro_torch.launch import dryrun, perf_iter
+    from repro_torch.train.train_step import make_train_step
+
+    api, tc = perf_iter.variant(TOOLS_ARCH, "baseline")
+    w_out = state.params["stack"][0].ffn.w_out
+    where, width = w_out.untyped_storage().data_ptr(), api.cfg.d_model
+
+    class Count(dryrun.CostMode):
+        down = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if (func._overloadpacket in flop_registry
+                    and isinstance(out, torch.Tensor)
+                    and out.shape[-1] == width
+                    and any(isinstance(a, torch.Tensor) and a.device.type
+                            == "cuda" and a.untyped_storage().data_ptr()
+                            == where for a in args)):
+                self.down += 1
+            return out
+
+    state.reset()
+    step = make_train_step(api, tc, donate=True)
+    with Count() as mode:
+        step(state.params, state.opt, state.batch)
+    torch.cuda.synchronize()
+    return {"flops_by_dtype": {k: float(v) for k, v in
+                               sorted(mode.flops_by_dtype.items())},
+            "down_projections": mode.down, "layers": api.cfg.num_layers}
+
+
+def perf_iter_phase(torch, dev, smi: str) -> dict:
+    """Phase 10b: ``perf_iter`` on ``TOOLS_ARCH`` at its published widths
+    and depth, phase 9a's B=1, T=4096: each variant from the same
+    parameters, zero moments and one batch, a warm-up and ``TOOLS_STEPS``
+    timed steps. Finite losses, first losses within ``TOOLS_LOSS_REL`` and
+    first gradient norms within ``TOOLS_GNORM_REL`` of each other, the
+    peak under the card's memory. Then :func:`card_count`: the step the
+    card runs has the ``meta`` count's FLOPs, and each layer's down
+    projection runs once (the remat does not recompute it)."""
+    from repro_torch.launch import perf_iter
+
+    t_phase = time.perf_counter()
+    state = perf_iter.CardState.build(TOOLS_ARCH, TOOLS_SHAPE, dev, batch=1)
+    rows = []
+    for name in TOOLS_VARIANTS:
+        r = perf_iter.measure(TOOLS_ARCH, TOOLS_SHAPE, name, state=state,
+                              steps=TOOLS_STEPS)
+        rows.append(r)
+        print(f"[tools] 10b {name}: step {r['step_ms']} ms "
+              f"({r['step_ms_all']}), peak {r['peak_gb']} GiB, temp "
+              f"{r['temp_gb']} GiB, losses {r['losses']}, grad norms "
+              f"{r['grad_norms']}; counted "
+              f"{json.dumps(r['card_flops_by_dtype'])} FLOPs: compute "
+              f"{r['card_compute_ms']} ms, arguments and outputs "
+              f"{r['card_io_bytes']} bytes {r['card_io_ms']} ms; bound "
+              f"{r['bound_ms']} ms by {r['bound_by']}, "
+              f"{r['achieved_tflops']} TFLOP/s, bound share "
+              f"{r['bound_share']}; the eager operators' traffic "
+              f"{r['card_eager_bytes']} bytes ({r['card_eager_ms']} ms at "
+              f"the HBM rate); {smi}")
+    counted = card_count(torch, state)
+    print(f"[tools] 10b baseline on the card under CostMode: "
+          f"{json.dumps(counted)}")
+    del state
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    firsts = [r["losses"][0] for r in rows]
+    norms = [r["grad_norms"][0] for r in rows]
+    check(all(math.isfinite(x) for r in rows
+              for x in r["losses"] + r["grad_norms"]),
+          f"perf_iter losses {[r['losses'] for r in rows]}, grad norms "
+          f"{[r['grad_norms'] for r in rows]}")
+    check(max(firsts) - min(firsts) <= TOOLS_LOSS_REL * abs(firsts[0]),
+          f"perf_iter first losses {firsts} differ past {TOOLS_LOSS_REL}")
+    check(max(norms) - min(norms) <= TOOLS_GNORM_REL * abs(norms[0]),
+          f"perf_iter first grad norms {norms} differ past "
+          f"{TOOLS_GNORM_REL}")
+    check(all(r["peak_gb"] * perf_iter.GB < total for r in rows),
+          f"perf_iter peaks {[r['peak_gb'] for r in rows]} GiB")
+    check(counted["flops_by_dtype"] == rows[0]["card_flops_by_dtype"],
+          f"the card's step counted {counted['flops_by_dtype']}, the meta "
+          f"count {rows[0]['card_flops_by_dtype']}")
+    check(counted["down_projections"] == counted["layers"],
+          f"{counted['down_projections']} down projections ran for "
+          f"{counted['layers']} layers")
+    out = {"rows": rows, "card_count": counted, "card": smi,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print(f"[tools] 10b in {out['phase_seconds']} s")
+    return out
+
+
+def start_examples() -> dict:
+    """Phase 10c's processes: the port's store examples, each in a
+    subprocess on the card, all three at once (10a runs on the host while
+    they do)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUNNER, f"examples/{name}"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in EXAMPLE_LINES}
+
+
+def examples_phase(procs: dict, by_path: dict, t_start: float) -> dict:
+    """Phase 10c: every example of ``procs`` exits 0 having printed
+    ``EXAMPLE_LINES``; the GF(2^8) wrappers' launches of the three
+    processes summed into ``by_path[name]["examples"]``, each above 0."""
+    launches = {"gf256_matmul_batched": 0, "gf256_matmul": 0}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"{name} exited {proc.returncode}: "
+                  f"{err[-2000:]}")
+            check(out.splitlines() == EXAMPLE_LINES[name],
+                  f"{name} printed {out.splitlines()}")
+            for k, v in json.loads(err.strip().splitlines()[-1]).items():
+                launches[k] += v
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    for k, v in launches.items():
+        by_path[k]["examples"] = v
+        check(v > 0, f"{k} was never launched by the examples")
+    out = {"launches": launches,
+           "phase_seconds": time.perf_counter() - t_start}
+    print(f"[tools] 10c examples: {json.dumps(out)}")
     return out
 
 
