@@ -124,8 +124,7 @@ class BatchedCodecEngine:
                              f"{tuple(stacked.shape)}")
         mr = self._rules(mesh_rules)
         self.last_span = stripe_span(stacked.shape, mr)
-        if self.last_span <= 1 and not isinstance(stacked, ShardedBatch):
-            stacked = as_u8(stacked, self.device)
+        stacked = self.place(stacked, mesh_rules)
         self.effective_backend = effective_backend(self.backend, self.device)
         bitmatrix = self._bits(plan)
         t0 = time.perf_counter()
@@ -135,6 +134,18 @@ class BatchedCodecEngine:
         self._sync()
         self.last_exec_seconds = time.perf_counter() - t0
         return out
+
+    def place(self, stacked, mesh_rules: Optional[MeshRules] = None):
+        """``stacked`` where :meth:`execute` launches it: a batch the mesh
+        does not split on the engine's device (from the host, one copy), a
+        split or :class:`~repro_torch.dist.stripes.ShardedBatch` one as it
+        is (the launch scatters it slice by slice). Callers that time the
+        copy apart from the launch call this first; ``execute`` then finds
+        the stack where it belongs."""
+        if isinstance(stacked, ShardedBatch) or stripe_span(
+                stacked.shape, self._rules(mesh_rules)) > 1:
+            return stacked
+        return as_u8(stacked, self.device)
 
     def _execute(self, plan: CompiledPlan, available: Blocks,
                  mesh_rules: Optional[MeshRules] = None) -> torch.Tensor:

@@ -119,6 +119,24 @@ class FleetRepairReport:
     compute_seconds: float = 0.0
     write_seconds: float = 0.0
     overlap_seconds: float = 0.0
+    # The calling thread's split of those stages (StripeStore.repair_all):
+    # planning and window creation, blocked on reads, copy to the device,
+    # kernel, copy back (the last three make compute_seconds), blocked on
+    # the last write-backs. Spans of a torch.profiler trace when one
+    # records the caller.
+    plan_seconds: float = 0.0
+    read_wait_seconds: float = 0.0
+    copy_in_seconds: float = 0.0
+    kernel_seconds: float = 0.0
+    copy_out_seconds: float = 0.0
+    drain_wait_seconds: float = 0.0
+    # The readers: busy wall time summed over block reads (link sleeps
+    # included) out of reader_threads x wall_seconds; the wall time with
+    # no read in flight; the bytes the launches took to the device.
+    reader_busy_seconds: float = 0.0
+    reader_threads: int = 1
+    no_read_seconds: float = 0.0
+    h2d_bytes: int = 0
     # Locality accounting (repro_torch.dist.placement.PlacementMap): repair reads
     # served shard-locally vs. across shards, and the gather bytes each
     # shard pulled — the per-shard split of the batched read stack.
@@ -171,10 +189,24 @@ class FleetRepairReport:
         return self.overlap_seconds / busy if busy > 0 else 0.0
 
     @property
+    def reader_occupancy(self) -> float:
+        """Share of the readers' wall time spent in a read (0 with no
+        reads)."""
+        slots = self.reader_threads * self.wall_seconds
+        return self.reader_busy_seconds / slots if slots > 0 else 0.0
+
+    @property
     def local_read_fraction(self) -> float:
         """Fraction of repair reads served from the reading shard's nodes."""
         total = self.local_reads + self.remote_reads
         return self.local_reads / total if total else 1.0
+
+
+# repair_all's fields that the report carries as they are.
+_SPLIT_FIELDS = ("plan_seconds", "read_wait_seconds", "copy_in_seconds",
+                 "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
+                 "reader_busy_seconds", "reader_threads", "no_read_seconds",
+                 "h2d_bytes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,7 +317,11 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
     ``options.pipeline`` (default: on when ``cfg.pipeline_window > 0``)
     overlaps each window's disk reads, device launch and write-back
     through the async pipeline; the report's ``read/compute/write_seconds``
-    and ``overlap_seconds`` fields make the overlap observable.
+    and ``overlap_seconds`` fields make the overlap observable, and
+    ``plan/read_wait/copy_in/kernel/copy_out/drain_wait_seconds``, the
+    readers' ``reader_busy_seconds`` over ``reader_threads`` (see
+    ``reader_occupancy``), ``no_read_seconds`` and ``h2d_bytes`` say where
+    the caller's time went (``StripeStore.repair_all``).
     ``options.mesh_rules`` (or an ambient ``with_rules`` context)
     device-shards each launch's stripe axis; the report's
     ``devices``/``device_launches`` fields record the resulting per-device
@@ -342,6 +378,7 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
         compute_seconds=tele.get("compute_seconds", 0.0),
         write_seconds=tele.get("write_seconds", 0.0),
         overlap_seconds=tele.get("overlap_seconds", 0.0),
+        **{f: tele[f] for f in _SPLIT_FIELDS},
         local_reads=tele.get("local_reads", 0),
         remote_reads=tele.get("remote_reads", 0),
         gather_bytes_per_shard=tele.get("gather_bytes_per_shard", {}),

@@ -55,18 +55,29 @@ encoded stripes through ``StripeStreamWriter.write_window``.
 
 Every stage records wall spans; :class:`PipelineResult` aggregates them so
 overlap is *observable*: ``read+compute+write > wall`` is the pipeline
-working, and ``overlap_seconds`` quantifies it.
+working, and ``overlap_seconds`` quantifies it. The coordinator's own
+stages split that further: ``read_wait`` (blocked on a window's reads),
+``copy_in``, ``kernel`` and ``copy_out`` (the three parts of ``compute``)
+and ``drain_wait`` (blocked on the last write-backs), plus ``plan``
+(window creation; ``StripeStore.repair_all`` adds its own planning). When
+a ``torch.profiler`` records the thread that runs a repair, those spans
+also show on its trace under their names (``repair.plan``,
+``pipeline.read_wait``, ``pipeline.copy_in``, ``pipeline.kernel``,
+``pipeline.copy_out``, ``pipeline.drain_wait``), on the device timeline's
+clock; the profiler records no reader or writer thread.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.dist.placement import assemble_shards, plan_gather
 from repro_torch.dist.schedule import schedule_group
@@ -80,7 +91,8 @@ PipelineHook = Callable[[str, int], None]
 
 
 def run_double_buffered(windows: Sequence, *, produce, consume,
-                        writer: ThreadPoolExecutor) -> None:
+                        writer: ThreadPoolExecutor,
+                        clock: Optional["StageClock"] = None) -> None:
     """The double-buffer loop shared by every windowed pipeline.
 
     Repair runs it forward (read → decode → write-back) and checkpoint
@@ -99,7 +111,8 @@ def run_double_buffered(windows: Sequence, *, produce, consume,
     Window *i+1*'s production is always submitted before window *i* is
     consumed, so at steady state three consecutive windows are in flight:
     one producing, one computing, one draining. Drain errors surface after
-    the last window (every future's result is collected).
+    the last window (every future's result is collected); with a
+    ``clock``, the wait for them is its ``drain_wait`` stage.
     """
     drains: list[Future] = []
     pending = produce(windows[0]) if windows else None
@@ -109,19 +122,91 @@ def run_double_buffered(windows: Sequence, *, produce, consume,
         if drain is not None:
             drains.append(writer.submit(drain))
         pending = nxt
-    wait(drains)
+    with (clock.span("drain_wait", "pipeline.drain_wait") if clock
+          else contextlib.nullcontext()):
+        wait(drains)
     for f in drains:
         f.result()                       # surface writer-thread errors
 
 
-def _record_span(lock: threading.Lock, res: "PipelineResult", stage: str,
-                 index: int, t0: float, t1: float) -> None:
-    """Append a stage span and bump its aggregate, under the result lock
-    (stages land from the coordinator, packer and writer threads)."""
-    with lock:
-        res.spans.append((stage, index, t0, t1))
-        setattr(res, f"{stage}_seconds",
-                getattr(res, f"{stage}_seconds") + (t1 - t0))
+# Stages whose wall time a run sums into ``<stage>_seconds`` of its
+# PipelineResult (and a store into its Telemetry): the three overlapped
+# stages, then the coordinator's own split of them.
+STAGES = ("read", "compute", "write", "plan", "read_wait", "copy_in",
+          "kernel", "copy_out", "drain_wait")
+
+
+class StageClock:
+    """Sums stage spans into ``target.<stage>_seconds`` under ``lock``
+    (spans land from the coordinator, reader, packer and writer threads).
+
+    Whether a profiler records is asked once, when the clock is made, of
+    the thread that makes it (a profiler never records a thread-pool
+    thread, whether the pool was made before it started or after): then a
+    span given a ``name`` is also a ``torch.profiler.record_function`` of
+    that name. Only spans opened on that thread pass a name; untraced, a
+    span costs two clock reads.
+    """
+
+    def __init__(self, target, lock: threading.Lock):
+        self.target = target
+        self.lock = lock
+        self.traced = torch._C._autograd._profiler_enabled()
+
+    def add(self, stage: str, seconds: float) -> None:
+        with self.lock:
+            attr = f"{stage}_seconds"
+            setattr(self.target, attr, getattr(self.target, attr) + seconds)
+
+    def span(self, stage: str, name: Optional[str] = None) -> "_Span":
+        return _Span(self, stage, name if self.traced else None)
+
+
+class _Span:
+    """One ``with`` of :meth:`StageClock.span`; setting ``seconds`` in the
+    body replaces the wall time it adds (the kernel's own timing)."""
+    __slots__ = ("clock", "stage", "fn", "t0", "seconds")
+
+    def __init__(self, clock: StageClock, stage: str, name: Optional[str]):
+        self.clock = clock
+        self.stage = stage
+        self.fn = torch.profiler.record_function(name) if name else None
+        self.seconds: Optional[float] = None
+
+    def __enter__(self) -> "_Span":
+        if self.fn is not None:
+            self.fn.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        wall = time.perf_counter() - self.t0
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        self.clock.add(self.stage,
+                       wall if self.seconds is None else self.seconds)
+
+
+def launch_stages(store, compiled, stacked, mesh_rules,
+                  clock: StageClock) -> np.ndarray:
+    """A gathered stack through the store's engine, back on the host as
+    ``(S, |targets|, B)``: ``copy_in`` (the stack to the engine's device;
+    a stack the mesh splits is scattered by the launch), ``kernel`` (the
+    engine's own timing, after the device is synchronised) and
+    ``copy_out``, the three inside ``compute``. The launched bytes count
+    into ``Telemetry.h2d_bytes``: each reached the card from the host once.
+    Shared by the pipeline and the synchronous path."""
+    engine = store.engine
+    with clock.span("compute"):
+        with clock.span("copy_in", "pipeline.copy_in"):
+            stacked = engine.place(stacked, mesh_rules)
+        with store._tele_lock:
+            store.telemetry.h2d_bytes += math.prod(stacked.shape)
+        with clock.span("kernel", "pipeline.kernel") as kernel:
+            out = engine.execute(compiled, stacked, mesh_rules)
+            kernel.seconds = engine.last_exec_seconds
+        with clock.span("copy_out", "pipeline.copy_out"):
+            return out.cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +246,16 @@ class PipelineResult:
     read_seconds: float = 0.0              # sum of per-window prefetch spans
     compute_seconds: float = 0.0           # sum of launch (+ host copy) spans
     write_seconds: float = 0.0             # sum of write-back spans
+    # The coordinator's split (STAGES): window creation, blocked on reads,
+    # the three parts of compute, blocked on the last write-backs.
+    plan_seconds: float = 0.0
+    read_wait_seconds: float = 0.0
+    copy_in_seconds: float = 0.0
+    kernel_seconds: float = 0.0
+    copy_out_seconds: float = 0.0
+    drain_wait_seconds: float = 0.0
+    readers: int = 0                       # reader threads, all pools
     wall_seconds: float = 0.0
-    spans: list = dataclasses.field(default_factory=list)  # (stage, win, t0, t1)
     # Stripe-scheduler predictions (repro_torch.dist.schedule): shard-local reads
     # under the order the windows actually used vs. the contiguous order,
     # over schedule_total gather reads. Re-planned sub-windows are excluded
@@ -276,14 +369,14 @@ class RepairPipeline:
         return _Fetch(win, shape, layout, [p.buf for p in parts],
                       futures, t0)
 
-    def _collect(self, fetch: _Fetch, res: PipelineResult):
+    def _collect(self, fetch: _Fetch, clock: StageClock):
         """Wait out a prefetch. Returns the batch — a host stack for
         degraded windows, or the sharded batch assembled from the
         per-shard buffers — or None when node deaths invalidated it (the
         window must re-plan). Non-I/O errors raise."""
-        wait(fetch.futures)
-        t1 = time.perf_counter()
-        self._span(res, "read", fetch.window.index, fetch.t_submit, t1)
+        with clock.span("read_wait", "pipeline.read_wait"):
+            wait(fetch.futures)
+        clock.add("read", time.perf_counter() - fetch.t_submit)
         io_failed = False
         for f in fetch.futures:
             err = f.exception()
@@ -301,33 +394,26 @@ class RepairPipeline:
                                fetch.bufs)
 
     def _launch(self, win: RepairWindow, stacked,
-                res: PipelineResult) -> dict[int, np.ndarray]:
+                clock: StageClock) -> dict[int, np.ndarray]:
         engine = self.store.engine
-        t0 = time.perf_counter()
-        out = engine.execute(win.compiled, stacked,
-                             self.mesh_rules).cpu().numpy()
-        t1 = time.perf_counter()
-        self._span(res, "compute", win.index, t0, t1)
+        out = launch_stages(self.store, win.compiled, stacked,
+                            self.mesh_rules, clock)
+        res = clock.target
         res.launches += 1
         res.devices = max(res.devices, engine.last_span)
         res.device_launches += engine.last_span
         return {b: out[:, t, :] for t, b in enumerate(win.compiled.targets)}
 
     def _writeback(self, win: RepairWindow, rebuilt: dict[int, np.ndarray],
-                   res: PipelineResult) -> None:
-        t0 = time.perf_counter()
-        self.store._finish_repair(list(win.sids), win.down, win.compiled.meta,
-                                  rebuilt, self.spare_of, self.dest_of)
-        t1 = time.perf_counter()
-        self._span(res, "write", win.index, t0, t1)
-
-    def _span(self, res: PipelineResult, stage: str, index: int,
-              t0: float, t1: float) -> None:
-        _record_span(self._span_lock, res, stage, index, t0, t1)
+                   clock: StageClock) -> None:
+        with clock.span("write"):           # on the writer thread: no name
+            self.store._finish_repair(list(win.sids), win.down,
+                                      win.compiled.meta, rebuilt,
+                                      self.spare_of, self.dest_of)
 
     # ------------------------------------------------------------- replan
     def _replan(self, pools: list[ThreadPoolExecutor], win: RepairWindow,
-                res: PipelineResult) -> None:
+                clock: StageClock) -> None:
         """Slow path: nodes died under this window's prefetch. Regroup its
         stripes by their *current* down sets, compile fresh plans, and
         repair synchronously (reads still fan out over the shard pools).
@@ -338,7 +424,7 @@ class RepairPipeline:
         for _ in range(1 + len(store.nodes)):
             if not pending:
                 return
-            res.replans += 1
+            clock.target.replans += 1
             self.hook("replan", win.index)
             retry: list[int] = []
             groups: dict[frozenset[int], list[int]] = {}
@@ -351,11 +437,12 @@ class RepairPipeline:
                     raise IOError(f"stripes {sids} unrecoverable: "
                                   f"{sorted(down)}") from None
                 sub = RepairWindow(win.index, tuple(sids), down, compiled)
-                stacked = self._collect(self._prefetch(pools, sub), res)
+                stacked = self._collect(self._prefetch(pools, sub), clock)
                 if stacked is None:          # yet another failure; go again
                     retry.extend(sids)
                     continue
-                self._writeback(sub, self._launch(sub, stacked, res), res)
+                self._writeback(sub, self._launch(sub, stacked, clock),
+                                clock)
             pending = retry
         raise IOError(f"stripes {pending}: nodes kept failing during re-plan")
 
@@ -370,7 +457,9 @@ class RepairPipeline:
         for three consecutive windows run concurrently.
         """
         res = PipelineResult()
-        windows = self._windows(work, res)
+        clock = StageClock(res, self._span_lock)
+        with clock.span("plan", "repair.plan"):
+            windows = self._windows(work, res)
         res.windows = len(windows)
         if not windows:
             return res
@@ -378,6 +467,7 @@ class RepairPipeline:
         # One reader pool per gather shard (each simulated host's own
         # disks); a single pool when the mesh degrades to one device.
         num_pools = max(1, stripe_axis_span(self.mesh_rules))
+        res.readers = self.threads * num_pools
         with contextlib.ExitStack() as stack:
             readers = [stack.enter_context(ThreadPoolExecutor(
                 self.threads, thread_name_prefix=f"repair-read-s{s}"))
@@ -391,17 +481,17 @@ class RepairPipeline:
                 return fetch
 
             def consume(win: RepairWindow, fetch: _Fetch):
-                stacked = self._collect(fetch, res)
+                stacked = self._collect(fetch, clock)
                 self.hook("launch", win.index)
                 if stacked is None:
-                    self._replan(readers, win, res)
+                    self._replan(readers, win, clock)
                     return None
-                rebuilt = self._launch(win, stacked, res)
+                rebuilt = self._launch(win, stacked, clock)
                 self.hook("writeback", win.index)
-                return lambda: self._writeback(win, rebuilt, res)
+                return lambda: self._writeback(win, rebuilt, clock)
 
             run_double_buffered(windows, produce=produce, consume=consume,
-                                writer=writer)
+                                writer=writer, clock=clock)
         res.wall_seconds = time.perf_counter() - t_run
         return res
 
@@ -488,26 +578,22 @@ class EncodePipeline:
         batch[:len(src)] = src
         return batch.reshape(win.count, cfg.k, cfg.block_size)
 
-    def _encode(self, win: EncodeWindow, batch: np.ndarray,
-                res: PipelineResult) -> np.ndarray:
+    def _encode(self, batch: np.ndarray, clock: StageClock) -> np.ndarray:
         engine = self.store.engine
-        t0 = time.perf_counter()
-        out = engine.encode(batch, self.mesh_rules).cpu().numpy()
-        t1 = time.perf_counter()
-        _record_span(self._span_lock, res, "compute", win.index, t0, t1)
+        with clock.span("compute"):
+            out = engine.encode(batch, self.mesh_rules).cpu().numpy()
+        res = clock.target
         res.launches += 1
         res.devices = max(res.devices, engine.last_span)
         res.device_launches += engine.last_span
         return out
 
     def _drain(self, stream, win: EncodeWindow, encoded: np.ndarray,
-               res: PipelineResult) -> None:
-        t0 = time.perf_counter()
-        stream.write_window(win.first, encoded)
-        if self.drain_stall > 0.0:
-            time.sleep(self.drain_stall)
-        t1 = time.perf_counter()
-        _record_span(self._span_lock, res, "write", win.index, t0, t1)
+               clock: StageClock) -> None:
+        with clock.span("write"):
+            stream.write_window(win.first, encoded)
+            if self.drain_stall > 0.0:
+                time.sleep(self.drain_stall)
         self.hook("drain", win.index)
 
     # ---------------------------------------------------------------- run
@@ -518,6 +604,7 @@ class EncodePipeline:
         half-drained, and the stream refuses to ``close``."""
         flat = np.asarray(flat, np.uint8).reshape(-1)
         res = PipelineResult()
+        clock = StageClock(res, self._span_lock)
         windows = self._windows(stream.num_stripes)
         res.windows = len(windows)
         if not windows:
@@ -538,11 +625,10 @@ class EncodePipeline:
             def consume(win: EncodeWindow, token):
                 fut, t0 = token
                 batch = fut.result()
-                _record_span(self._span_lock, res, "read", win.index,
-                             t0, time.perf_counter())
-                encoded = self._encode(win, batch, res)
+                clock.add("read", time.perf_counter() - t0)
+                encoded = self._encode(batch, clock)
                 self.hook("encode", win.index)
-                return lambda: self._drain(stream, win, encoded, res)
+                return lambda: self._drain(stream, win, encoded, clock)
 
             if self.pipelined:
                 run_double_buffered(windows, produce=produce,

@@ -46,6 +46,7 @@ from repro_torch.kernels.ops import effective_backend as _eff
 from repro_torch.serve.telemetry import LatencyRecorder
 
 from .options import RepairOptions, ServeOptions
+from .pipeline import STAGES, StageClock, launch_stages
 
 # Shared all-defaults ServeOptions: every read without explicit options
 # resolves its knobs through this one frozen instance.
@@ -176,6 +177,23 @@ class Telemetry:
     read_seconds: float = 0.0
     compute_seconds: float = 0.0
     write_seconds: float = 0.0
+    # The coordinator's split of them (repro_torch.ftx.pipeline.STAGES):
+    # planning and window creation, blocked on a window's reads, the copy
+    # to the device, the kernel, the copy back (the three make compute),
+    # blocked on the last write-backs.
+    plan_seconds: float = 0.0
+    read_wait_seconds: float = 0.0
+    copy_in_seconds: float = 0.0
+    kernel_seconds: float = 0.0
+    copy_out_seconds: float = 0.0
+    drain_wait_seconds: float = 0.0
+    # Block reads: wall time summed over reads, each from its file read to
+    # the end of its link sleep; wall time with no read in flight (closed
+    # up to the last read's start or end, and by repair_all at its ends);
+    # bytes of the repair launches' stacks moved from the host to the card.
+    reader_busy_seconds: float = 0.0
+    no_read_seconds: float = 0.0
+    h2d_bytes: int = 0
     # Locality accounting (PlacementMap): reads served from the reading
     # shard's own nodes vs. cross-shard fetches, and how many gather bytes
     # each shard pulled from disk during repair gathers.
@@ -213,7 +231,10 @@ class Telemetry:
         self.blocks_read = self.bytes_read = 0
         self.repairs_local = self.repairs_global = 0
         self.sim_seconds = 0.0
-        self.read_seconds = self.compute_seconds = self.write_seconds = 0.0
+        for stage in STAGES:
+            setattr(self, f"{stage}_seconds", 0.0)
+        self.reader_busy_seconds = self.no_read_seconds = 0.0
+        self.h2d_bytes = 0
         self.local_reads = self.remote_reads = 0
         self.gather_bytes_per_shard = {}
         self.blocks_relocated = 0
@@ -303,6 +324,10 @@ class StripeStore:
         # telemetry concurrently with the coordinator; counters stay exact
         # under this lock.
         self._tele_lock = threading.Lock()
+        # Block reads in flight, and since when none has been (valid while
+        # the count is 0): Telemetry.no_read_seconds, under _tele_lock.
+        self._reads_in_flight = 0
+        self._no_read_since = time.perf_counter()
         self.stripes: dict[int, Stripe] = {}
         self.objects: dict[str, ObjectMeta] = {}
         self.telemetry = Telemetry()
@@ -345,19 +370,30 @@ class StripeStore:
         node = self.stripes[sid].node_of_block[block]
         if self.nodes[node] is NodeState.DOWN:
             raise IOError(f"node {node} is down")
-        data = np.fromfile(self._block_path(sid, block), dtype=np.uint8)
-        lo, hi = rng if rng else (0, len(data))
-        local = placement is None or placement.is_local(node, shard)
-        dt = ((hi - lo) * 8 / (self.cfg.bandwidth_gbps * 1e9)
-              + self.latency_ms[node] / 1e3)
-        if not local:
-            dt *= placement.remote_multiplier
-        if self.cfg.io_stall_scale > 0.0:
-            # Make the simulated link model wall-real (scaled): serial
-            # readers pay it in full, the pipeline's prefetch pool overlaps
-            # it with compute — exactly the effect under measurement.
-            time.sleep(self.cfg.io_stall_scale * dt)
+        t0 = time.perf_counter()
         with self._tele_lock:
+            self._close_no_read(t0)
+            self._reads_in_flight += 1
+        try:
+            data = np.fromfile(self._block_path(sid, block), dtype=np.uint8)
+            lo, hi = rng if rng else (0, len(data))
+            local = placement is None or placement.is_local(node, shard)
+            dt = ((hi - lo) * 8 / (self.cfg.bandwidth_gbps * 1e9)
+                  + self.latency_ms[node] / 1e3)
+            if not local:
+                dt *= placement.remote_multiplier
+            if self.cfg.io_stall_scale > 0.0:
+                # Make the simulated link model wall-real (scaled): serial
+                # readers pay it in full, the pipeline's prefetch pool
+                # overlaps it with compute — exactly the effect under
+                # measurement.
+                time.sleep(self.cfg.io_stall_scale * dt)
+        except BaseException:
+            with self._tele_lock:
+                self._read_done(t0, time.perf_counter())
+            raise
+        with self._tele_lock:
+            self._read_done(t0, time.perf_counter())
             self.telemetry.blocks_read += 1
             self.telemetry.bytes_read += hi - lo
             self.telemetry.sim_seconds += dt
@@ -369,6 +405,21 @@ class StripeStore:
                 gbs = self.telemetry.gather_bytes_per_shard
                 gbs[shard] = gbs.get(shard, 0) + (hi - lo)
         return data[lo:hi]
+
+    def _close_no_read(self, now: float) -> None:
+        """Under ``_tele_lock``: count the time since the last read ended
+        as no-read time, when no read is in flight."""
+        if not self._reads_in_flight:
+            self.telemetry.no_read_seconds += now - self._no_read_since
+            self._no_read_since = now
+
+    def _read_done(self, t0: float, t1: float) -> None:
+        """Under ``_tele_lock``: a read that began at ``t0`` ended at
+        ``t1``."""
+        self.telemetry.reader_busy_seconds += t1 - t0
+        self._reads_in_flight -= 1
+        if not self._reads_in_flight:
+            self._no_read_since = t1
 
     def _write_block(self, sid: int, block: int, data: np.ndarray) -> None:
         path = self._block_path(sid, block)
@@ -831,7 +882,20 @@ class StripeStore:
         per-device kernel executions across all launches).
         ``read/compute/write_seconds``
         report per-stage wall spans; ``overlap_seconds`` is the stage time
-        the pipeline hid (0 on the synchronous paths).
+        the pipeline hid (0 on the synchronous paths). The calling
+        thread's own split of them: ``plan_seconds`` (grouping, plans,
+        destinations and window creation), ``read_wait_seconds`` (blocked
+        on a window's reads), ``copy_in_seconds``, ``kernel_seconds`` and
+        ``copy_out_seconds`` (the three parts of ``compute_seconds``; the
+        kernel's is the engine's own timing) and ``drain_wait_seconds``
+        (blocked on the last write-backs); under a ``torch.profiler`` they
+        are also spans of its trace (``repro_torch.ftx.pipeline``). The
+        readers: ``reader_busy_seconds`` (wall time summed over block
+        reads, link sleeps included) over ``reader_threads`` (the pools'
+        width; 1 on the synchronous paths) gives their occupancy,
+        ``no_read_seconds`` is the call's wall time with no read in
+        flight, and ``h2d_bytes`` the bytes its launches took from the
+        host to the device.
 
         ``placement`` (a ``repro_torch.dist.placement.PlacementMap``; defaults to
         the store's, else one derived from the node->shard default for the
@@ -899,43 +963,19 @@ class StripeStore:
                              f"(choose from in_place, topology)")
         use_pipeline = batched and (pipeline if pipeline is not None
                                     else self.cfg.pipeline_window > 0)
-        before = self.telemetry.copy()
+        # Stage spans of this call (and, when a profiler records this
+        # thread, their names on its trace).
+        clock = StageClock(self.telemetry, self._tele_lock)
         t0 = time.perf_counter()
-        affected: dict[frozenset[int], list[int]] = {}
-        for sid in self.stripes:
-            down = self._down_blocks(sid)
-            if down:
-                affected.setdefault(down, []).append(sid)
-        # Topology-aware rebuild destinations: decide, up front and from the
-        # pre-repair placement snapshot, a surviving home for every lost
-        # block (repro_torch.dist.topology.pick_destinations). Applied at
-        # write-back; deterministic in (topology, placements, alive set).
-        dest_of: Optional[dict[tuple[int, int], int]] = None
-        dest_copyset = dest_total = 0
-        if destinations == "topology" and affected:
-            alive = {n for n, s in self.nodes.items() if s is NodeState.UP}
-            lost = [(sid, b) for down, g_sids in affected.items()
-                    for sid in g_sids for b in down]
-            placements = {sid: list(self.stripes[sid].node_of_block)
-                          for _, g_sids in affected.items() for sid in g_sids}
-            loads = block_loads((s.node_of_block
-                                 for s in self.stripes.values()),
-                                self.num_nodes)
-            dest_of = pick_destinations(
-                self.topology, self.cfg.placement_policy, placements,
-                lost, alive, loads=loads)
-            dest_total = len(dest_of)
-            for (sid, b), node in dest_of.items():
-                live = {self.topology.domain_of(n)
-                        for i, n in enumerate(placements[sid])
-                        if (sid, i) not in dest_of}
-                if self.topology.domain_of(node) in live:
-                    dest_copyset += 1
+        with self._tele_lock:
+            self._close_no_read(t0)
+            before = self.telemetry.copy()
         launches = 0
         devices = 1
         device_launches = 0
         windows = 0
         replans = 0
+        readers = 1                    # the synchronous paths read inline
         # Stripe-scheduler prediction accumulators: local reads the chosen
         # order will serve shard-locally vs. what the contiguous order
         # would have, over the same total (repro_torch.dist.schedule).
@@ -945,26 +985,64 @@ class StripeStore:
         # a mixed-failure fleet rebuilds everything it can before raising.
         unrecoverable: Optional[IOError] = None
         work: list[tuple[list[int], frozenset[int], object]] = []
-        for down, sids in sorted(affected.items(), key=lambda kv: kv[1][0]):
-            if not batched:
+        with clock.span("plan", "repair.plan"):
+            affected: dict[frozenset[int], list[int]] = {}
+            for sid in self.stripes:
+                down = self._down_blocks(sid)
+                if down:
+                    affected.setdefault(down, []).append(sid)
+            groups = sorted(affected.items(), key=lambda kv: kv[1][0])
+            # Topology-aware rebuild destinations: decide, up front and
+            # from the pre-repair placement snapshot, a surviving home for
+            # every lost block (repro_torch.dist.topology.
+            # pick_destinations). Applied at write-back; deterministic in
+            # (topology, placements, alive set).
+            dest_of: Optional[dict[tuple[int, int], int]] = None
+            dest_copyset = dest_total = 0
+            if destinations == "topology" and affected:
+                alive = {n for n, s in self.nodes.items()
+                         if s is NodeState.UP}
+                lost = [(sid, b) for down, g_sids in affected.items()
+                        for sid in g_sids for b in down]
+                placements = {sid: list(self.stripes[sid].node_of_block)
+                              for _, g_sids in affected.items()
+                              for sid in g_sids}
+                loads = block_loads((s.node_of_block
+                                     for s in self.stripes.values()),
+                                    self.num_nodes)
+                dest_of = pick_destinations(
+                    self.topology, self.cfg.placement_policy, placements,
+                    lost, alive, loads=loads)
+                dest_total = len(dest_of)
+                for (sid, b), node in dest_of.items():
+                    live = {self.topology.domain_of(n)
+                            for i, n in enumerate(placements[sid])
+                            if (sid, i) not in dest_of}
+                    if self.topology.domain_of(node) in live:
+                        dest_copyset += 1
+            if batched:
+                for down, sids in groups:
+                    try:
+                        compiled = self.engine.planner.multi_plan(down)
+                    except RuntimeError:
+                        unrecoverable = IOError(
+                            f"stripes {sids} unrecoverable: {sorted(down)}")
+                        break
+                    work.append((sids, down, compiled))
+        if not batched:
+            for down, sids in groups:
                 for sid in sids:
                     plan = multi_repair_plan(self.scheme, down)
                     if not plan.feasible:
-                        raise IOError(f"stripe {sid} unrecoverable: {sorted(down)}")
+                        raise IOError(
+                            f"stripe {sid} unrecoverable: {sorted(down)}")
                     rebuilt, _ = self._execute_multi(sid, plan, down, None)
-                    self._finish_repair([sid], down, plan,
-                                        {b: v[None] for b, v in rebuilt.items()},
-                                        spare_of, dest_of)
+                    self._finish_repair(
+                        [sid], down, plan,
+                        {b: v[None] for b, v in rebuilt.items()},
+                        spare_of, dest_of)
                     launches += 1
                     device_launches += 1
-                continue
-            try:
-                compiled = self.engine.planner.multi_plan(down)
-            except RuntimeError:
-                unrecoverable = IOError(
-                    f"stripes {sids} unrecoverable: {sorted(down)}")
-                break
-            work.append((sids, down, compiled))
         if use_pipeline and work:
             from .pipeline import RepairPipeline
 
@@ -981,13 +1059,12 @@ class StripeStore:
             device_launches += res.device_launches
             windows = res.windows
             replans = res.replans
+            readers = res.readers
             sched_local += res.scheduled_local
             contig_local += res.contiguous_local
             sched_total += res.schedule_total
-            with self._tele_lock:
-                self.telemetry.read_seconds += res.read_seconds
-                self.telemetry.compute_seconds += res.compute_seconds
-                self.telemetry.write_seconds += res.write_seconds
+            for stage in STAGES:
+                clock.add(stage, getattr(res, f"{stage}_seconds"))
         else:
             for sids, down, compiled in work:
                 # Chunk by stripe count AND gathered-stack bytes, so wide
@@ -1004,22 +1081,26 @@ class StripeStore:
                     sched_total += cs.total_reads
                     span = self._repair_group(list(cs.sids), down,
                                               compiled, spare_of, mr,
-                                              placement, dest_of)
+                                              placement, dest_of, clock)
                     launches += 1
                     devices = max(devices, span)
                     device_launches += span
         if unrecoverable is not None:
             raise unrecoverable
-        t = self.telemetry.copy()
-        wall = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        with self._tele_lock:
+            self._close_no_read(t_end)
+            t = self.telemetry.copy()
+        wall = t_end - t0
         gather_shards = {
             s: t.gather_bytes_per_shard.get(s, 0)
             - before.gather_bytes_per_shard.get(s, 0)
             for s in t.gather_bytes_per_shard}
         gather_shards = {s: v for s, v in gather_shards.items() if v}
-        stage_sum = ((t.read_seconds - before.read_seconds)
-                     + (t.compute_seconds - before.compute_seconds)
-                     + (t.write_seconds - before.write_seconds))
+        spent = {f"{stage}_seconds": getattr(t, f"{stage}_seconds")
+                 - getattr(before, f"{stage}_seconds") for stage in STAGES}
+        stage_sum = (spent["read_seconds"] + spent["compute_seconds"]
+                     + spent["write_seconds"])
         return {
             "stripes_repaired": sum(len(sids) for sids in affected.values()),
             "patterns": len(affected),
@@ -1042,10 +1123,13 @@ class StripeStore:
             "bytes_read": t.bytes_read - before.bytes_read,
             "sim_seconds": t.sim_seconds - before.sim_seconds,
             "wall_seconds": wall,
-            "read_seconds": t.read_seconds - before.read_seconds,
-            "compute_seconds": t.compute_seconds - before.compute_seconds,
-            "write_seconds": t.write_seconds - before.write_seconds,
+            **spent,
             "overlap_seconds": max(0.0, stage_sum - wall),
+            "reader_busy_seconds":
+                t.reader_busy_seconds - before.reader_busy_seconds,
+            "reader_threads": readers,
+            "no_read_seconds": t.no_read_seconds - before.no_read_seconds,
+            "h2d_bytes": t.h2d_bytes - before.h2d_bytes,
             "repairs_local": t.repairs_local - before.repairs_local,
             "repairs_global": t.repairs_global - before.repairs_global,
             "local_reads": t.local_reads - before.local_reads,
@@ -1093,29 +1177,27 @@ class StripeStore:
     def _repair_group(self, sids: list[int], down: frozenset[int],
                       compiled, spare_of: Optional[dict[int, int]],
                       mesh_rules=None, placement=None,
-                      dest_of: Optional[dict[tuple[int, int], int]] = None
-                      ) -> int:
+                      dest_of: Optional[dict[tuple[int, int], int]] = None,
+                      clock: Optional[StageClock] = None) -> int:
         """Batched repair of stripes sharing one failure pattern: per-shard
         gathers land each device's slice of the (S, |reads|, B) input
         straight on its shard (one host buffer per shard, no full-batch
         stack) and run a single launch (one per device slice under
         ``mesh_rules``; no per-block intermediate copies). Stages run
-        strictly serial here — the span accounting makes that visible next
-        to the pipelined path. Returns the device span of the launch."""
-        t0 = time.perf_counter()
-        stacked = self._gather_group(sids, compiled.reads, mesh_rules,
-                                     placement)
-        t1 = time.perf_counter()
-        out = self.engine.execute(compiled, stacked, mesh_rules).cpu().numpy()
+        strictly serial here — the span accounting (``clock``, by default
+        one into the store's telemetry) makes that visible next to the
+        pipelined path, compute split as there. Returns the device span of
+        the launch."""
+        if clock is None:
+            clock = StageClock(self.telemetry, self._tele_lock)
+        with clock.span("read"):
+            stacked = self._gather_group(sids, compiled.reads, mesh_rules,
+                                         placement)
+        out = launch_stages(self, compiled, stacked, mesh_rules, clock)
         rebuilt = {b: out[:, t, :] for t, b in enumerate(compiled.targets)}
-        t2 = time.perf_counter()
-        self._finish_repair(sids, down, compiled.meta, rebuilt, spare_of,
-                            dest_of)
-        t3 = time.perf_counter()
-        with self._tele_lock:
-            self.telemetry.read_seconds += t1 - t0
-            self.telemetry.compute_seconds += t2 - t1
-            self.telemetry.write_seconds += t3 - t2
+        with clock.span("write"):
+            self._finish_repair(sids, down, compiled.meta, rebuilt, spare_of,
+                                dest_of)
         return self.engine.last_span
 
     def _finish_repair(self, sids: list[int], down: frozenset[int], plan,

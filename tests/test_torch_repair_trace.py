@@ -1,0 +1,159 @@
+"""Where a repair's time goes, on the CPU (``device="cpu"``): the calling
+thread's stage split (plan, read wait, copy in, kernel, copy out, drain
+wait), the readers' busy time and the time with no read in flight, the
+bytes sent to the device, and the same spans on a ``torch.profiler``
+trace when, and only when, a profiler records the calling thread."""
+import collections
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.ftx import (RepairOptions, StoreConfig,  # noqa: E402
+                             StripeStore, repair_failed_nodes)
+
+SPLIT = ("plan", "read_wait", "copy_in", "kernel", "copy_out", "drain_wait")
+NAMES = {"repair.plan": "plan", "pipeline.read_wait": "read_wait",
+         "pipeline.copy_in": "copy_in", "pipeline.kernel": "kernel",
+         "pipeline.copy_out": "copy_out",
+         "pipeline.drain_wait": "drain_wait"}
+STALL = 0.05                       # share of each read's link time slept
+
+
+def _store(tmp_path, *, stripes=8, window=4, threads=4):
+    cfg = StoreConfig(scheme="cp-azure", k=6, r=2, p=2, block_size=4096,
+                      batch_stripes=window, pipeline_window=window,
+                      prefetch_threads=threads, io_stall_scale=STALL)
+    store = StripeStore(tmp_path, cfg, device="cpu")
+    payload = np.random.default_rng(5).integers(
+        0, 256, stripes * cfg.k * cfg.block_size, dtype=np.uint8)
+    store.put("blob", payload.tobytes())
+    store.seal()
+    return store
+
+
+def _repair(store, pipeline):
+    return repair_failed_nodes(store, [0], device="cpu",
+                               options=RepairOptions(pipeline=pipeline))
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_repair_reports_its_split(tmp_path, pipeline):
+    """Every part of the split is there, the three parts of compute fit
+    inside it, the readers were busy at least the link time they slept
+    and at most all of their wall time, and every block read went to the
+    device once."""
+    store = _store(tmp_path)
+    rep = _repair(store, pipeline)
+    assert rep.pipelined is pipeline and rep.blocks_read > 0
+    waits = ("read_wait", "drain_wait")
+    for stage in SPLIT:
+        value = getattr(rep, f"{stage}_seconds")
+        if pipeline or stage not in waits:
+            assert value > 0, stage
+        else:
+            assert value == 0, stage
+    assert (rep.copy_in_seconds + rep.kernel_seconds
+            + rep.copy_out_seconds) <= rep.compute_seconds
+    assert rep.read_wait_seconds <= rep.read_seconds
+    assert rep.reader_busy_seconds >= rep.sim_seconds * STALL
+    assert rep.reader_threads == (4 if pipeline else 1)
+    assert 0 < rep.reader_occupancy <= 1
+    assert rep.h2d_bytes == rep.blocks_read * store.cfg.block_size
+    assert 0 < rep.no_read_seconds < rep.wall_seconds
+    # The union of the reads lies between their longest share per reader
+    # and their sum; on the synchronous path they never overlap.
+    assert rep.no_read_seconds <= rep.wall_seconds \
+        - rep.reader_busy_seconds / rep.reader_threads + 1e-9
+    assert rep.no_read_seconds >= rep.wall_seconds \
+        - rep.reader_busy_seconds - 1e-9
+    if not pipeline:
+        assert rep.no_read_seconds + rep.reader_busy_seconds \
+            == pytest.approx(rep.wall_seconds, abs=1e-6)
+
+
+def test_store_telemetry_sums_the_split_over_repairs(tmp_path):
+    store = _store(tmp_path)
+    reps = [_repair(store, True), _repair(store, False)]
+    tele = store.telemetry
+    for field in [f"{s}_seconds" for s in SPLIT] + [
+            "reader_busy_seconds", "h2d_bytes"]:
+        assert getattr(tele, field) == pytest.approx(
+            sum(getattr(r, field) for r in reps)), field
+    assert tele.no_read_seconds >= sum(r.no_read_seconds for r in reps)
+    snap = tele.reset()
+    assert snap.h2d_bytes == sum(r.h2d_bytes for r in reps)
+    assert tele.h2d_bytes == 0 and tele.reader_busy_seconds == 0
+    assert all(getattr(tele, f"{s}_seconds") == 0 for s in SPLIT)
+
+
+def _span_sums(prof):
+    sums, counts = collections.defaultdict(float), collections.Counter()
+    for evt in prof.events():
+        if evt.name in NAMES:
+            sums[NAMES[evt.name]] += (evt.time_range.end
+                                      - evt.time_range.start) / 1e6
+            counts[evt.name] += 1
+    return sums, counts
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_spans_show_on_a_profiler_trace(tmp_path, pipeline):
+    """Under a CPU profiler the calling thread's spans are events of the
+    same names, whose durations sum to the report's split within 1 ms.
+    One stripe makes one window, so no reader or writer thread runs
+    Python while a span opens or closes. The process can still be
+    preempted between a span's clock and its event's (a loaded host does
+    that for milliseconds), so each stage is held to the closest of three
+    traced repairs: a span that timed other code than its event would
+    miss in all three."""
+    store = _store(tmp_path, stripes=1)
+    _repair(store, pipeline)                       # plans cached
+    want = set(NAMES) if pipeline else {
+        "repair.plan", "pipeline.copy_in", "pipeline.kernel",
+        "pipeline.copy_out"}
+    misses = collections.defaultdict(list)
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with torch.profiler.record_function("warm-up"):
+                pass
+            rep = _repair(store, pipeline)
+        sums, counts = _span_sums(prof)
+        assert set(counts) == want
+        assert counts["pipeline.kernel"] == rep.launches
+        for stage in sums:
+            misses[stage].append(
+                abs(sums[stage] - getattr(rep, f"{stage}_seconds")))
+    assert {stage: min(m) for stage, m in misses.items()
+            if min(m) > 1e-3} == {}
+
+
+def test_no_span_is_opened_unless_the_caller_is_profiled(tmp_path,
+                                                         monkeypatch):
+    """With no profiler, or one that records another thread, the repair
+    opens no ``record_function`` at all."""
+    store = _store(tmp_path, stripes=2)
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args, **kwargs):
+        opened.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    _repair(store, True)
+    _repair(store, False)
+    assert opened == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        worker = threading.Thread(target=_repair, args=(store, True))
+        worker.start()
+        worker.join()
+    assert opened == [] and not _span_sums(prof)[1]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _repair(store, True)
+    assert set(opened) == set(NAMES)

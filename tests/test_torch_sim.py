@@ -309,6 +309,12 @@ def test_entry_points_default_to_the_card():
 
 # ----------------------------------------------------------- calibration
 
+PORT_SPLIT = {"plan_seconds", "read_wait_seconds", "copy_in_seconds",
+              "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
+              "reader_busy_seconds", "reader_threads", "no_read_seconds",
+              "h2d_bytes"}
+
+
 def test_measure_repair_bandwidth_equals_reference_on_twin_stores(tmp_path):
     args = dict(scheme="cp-azure", k=4, r=2, p=1, block_size=1024,
                 backend="ref")
@@ -331,6 +337,14 @@ def test_measure_repair_bandwidth_equals_reference_on_twin_stores(tmp_path):
             timing |= {"sim_seconds", "gbps"}
             for k in ("sim_seconds", "gbps"):
                 assert got[k] == pytest.approx(want[k], rel=1e-12, abs=0)
+        # The port's own split of where the repair's time went: fields the
+        # reference does not report, timings but for the reader count and
+        # the bytes sent to the device (every block read, once).
+        assert set(got) - set(want) == PORT_SPLIT
+        assert got["reader_threads"] == (1 if exact is not None else
+                                         StoreConfig().prefetch_threads)
+        assert got["h2d_bytes"] == got["bytes_read"]
+        timing |= PORT_SPLIT
         assert {k: v for k, v in got.items() if k not in timing} == \
             {k: v for k, v in want.items() if k not in timing}
         assert got["gbps"] > 0 and got["bytes_read"] > 0
