@@ -23,6 +23,7 @@ equal slices of ``S / span`` stripes in global stripe order.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -141,7 +142,8 @@ class GatherShard:
     slice_: Optional[ShardSlice] = None    # None on the single-device path
 
 
-def plan_gather(shape: Sequence[int], mr: Optional[MeshRules], placement
+def plan_gather(shape: Sequence[int], mr: Optional[MeshRules], placement,
+                out: Optional[np.ndarray] = None
                 ) -> tuple[Optional[list[ShardSlice]], list[GatherShard]]:
     """Shared gather geometry for the stripe store and the repair pipeline.
 
@@ -151,6 +153,10 @@ def plan_gather(shape: Sequence[int], mr: Optional[MeshRules], placement
         placement: the active :class:`PlacementMap` (attributes each
             shard's reads), or ``None`` to attribute device shard *i* to
             host shard *i* directly.
+        out: a flat ``uint8`` buffer of at least the batch's bytes to back
+            the buffers (a reused staging buffer), or ``None`` to allocate
+            them. Each buffer is then the view of its stripe range
+            ``[lo, hi)`` of the batch laid out in stripe order.
 
     Returns:
         ``(layout, parts)``: the :func:`shard_layout` result plus one
@@ -164,16 +170,23 @@ def plan_gather(shape: Sequence[int], mr: Optional[MeshRules], placement
         stripe->device order the layout itself uses.
     """
     shape = tuple(shape)
+    row = math.prod(shape[1:])
+
+    def buffer(lo: int, hi: int) -> np.ndarray:
+        rows = (hi - lo,) + shape[1:]
+        if out is None:
+            return np.empty(rows, np.uint8)
+        return out[lo * row:hi * row].reshape(rows)
+
     layout = shard_layout(shape, mr)
     if layout is None:
-        return None, [GatherShard(0, shape[0], 0,
-                                  np.empty(shape, np.uint8))]
+        return None, [GatherShard(0, shape[0], 0, buffer(0, shape[0]))]
     span = len(layout)
     parts = [GatherShard(
         sl.lo, sl.hi,
         placement.reader_shard(sl.index, span) if placement is not None
         else sl.index,
-        np.empty((sl.size,) + shape[1:], np.uint8), sl) for sl in layout]
+        buffer(sl.lo, sl.hi), sl) for sl in layout]
     return layout, parts
 
 

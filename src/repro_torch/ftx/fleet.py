@@ -132,11 +132,17 @@ class FleetRepairReport:
     drain_wait_seconds: float = 0.0
     # The readers: busy wall time summed over block reads (link sleeps
     # included) out of reader_threads x wall_seconds; the wall time with
-    # no read in flight; the bytes the launches took to the device.
+    # no read in flight; the bytes the launches took to the device, and of
+    # those the bytes copied from page-locked memory.
     reader_busy_seconds: float = 0.0
     reader_threads: int = 1
     no_read_seconds: float = 0.0
     h2d_bytes: int = 0
+    h2d_pinned_bytes: int = 0
+    # Windows whose gather buffer the staging pool reused, and those that
+    # needed a new one (repro_torch.ftx.pipeline.STAGING).
+    staging_reused: int = 0
+    staging_allocated: int = 0
     # Locality accounting (repro_torch.dist.placement.PlacementMap): repair reads
     # served shard-locally vs. across shards, and the gather bytes each
     # shard pulled — the per-shard split of the batched read stack.
@@ -206,7 +212,8 @@ class FleetRepairReport:
 _SPLIT_FIELDS = ("plan_seconds", "read_wait_seconds", "copy_in_seconds",
                  "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
                  "reader_busy_seconds", "reader_threads", "no_read_seconds",
-                 "h2d_bytes")
+                 "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
+                 "staging_allocated")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,7 +328,9 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
     ``plan/read_wait/copy_in/kernel/copy_out/drain_wait_seconds``, the
     readers' ``reader_busy_seconds`` over ``reader_threads`` (see
     ``reader_occupancy``), ``no_read_seconds`` and ``h2d_bytes`` say where
-    the caller's time went (``StripeStore.repair_all``).
+    the caller's time went, and ``h2d_pinned_bytes``, ``staging_reused``
+    and ``staging_allocated`` how the gathers were staged
+    (``StripeStore.repair_all``).
     ``options.mesh_rules`` (or an ambient ``with_rules`` context)
     device-shards each launch's stripe axis; the report's
     ``devices``/``device_launches`` fields record the resulting per-device

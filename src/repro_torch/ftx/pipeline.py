@@ -30,6 +30,15 @@ This module overlaps the three stages with a classic double buffer over
 * write-back of window *i*'s rebuilt blocks happens on a dedicated writer
   thread, overlapped with the launch of window *i+1*.
 
+A window's buffers are views of one :class:`StagingBuffer` from the
+process-wide :data:`STAGING` pool, page-locked when the engine runs on a
+card: each reader reads its surviving block from the file straight into
+the block's slot (``StripeStore._read_block(out=...)``), and the launch
+copies the buffer to the card from there. A buffer goes back to the pool
+once its launch has returned, so two buffers carry the double buffer
+from one repair to the next, and a replanned window's sub-windows take a
+third.
+
 Window creation runs the locality-aware stripe scheduler
 (``repro_torch.dist.schedule``, ``schedule="locality"``): each window's sid list
 is permuted so every stripe lands on the device slice whose serving host
@@ -187,21 +196,126 @@ class _Span:
                        wall if self.seconds is None else self.seconds)
 
 
-def launch_stages(store, compiled, stacked, mesh_rules,
-                  clock: StageClock) -> np.ndarray:
+@dataclasses.dataclass(eq=False)
+class StagingBuffer:
+    """One reusable host buffer of the staging pool: ``flat`` holds
+    ``capacity`` bytes, page-locked when ``pinned`` (a view of a pinned
+    tensor, which the array keeps alive)."""
+    flat: np.ndarray
+    pinned: bool
+
+    @property
+    def capacity(self) -> int:
+        return self.flat.size
+
+
+class StagingPool:
+    """Host buffers that window gathers fill in place, reused across
+    windows, repairs and stores for the life of the process.
+
+    A buffer is handed out by :meth:`acquire` and comes back by
+    :meth:`release` once nothing reads or writes it any more: after its
+    window's launch returned (the launch waits for the device, so the
+    copy in has landed), or after every read submitted into it has ended.
+    A new buffer is as large as the largest request seen, rounded up to a
+    power of two (the page-locked allocator hands out such blocks
+    anyway), so a pool that has served a repair serves the next one from
+    the buffers it holds. At most three buffers wait idle (the double
+    buffer and a replanned sub-window's); a release beyond that drops the
+    smallest.
+
+    ``pinned`` asks for page-locked memory (the engine runs on a card, so
+    its copies in read the buffer directly); where page-locking fails the
+    pool gives plain buffers from then on.
+    """
+
+    MAX_IDLE = 3
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._idle: list[StagingBuffer] = []
+        self._largest = 0
+        self._pin_failed = False
+
+    def acquire(self, nbytes: int, pinned: bool
+                ) -> tuple[StagingBuffer, bool]:
+        """A buffer of at least ``nbytes`` bytes, and whether it was
+        reused (False: it was allocated now)."""
+        with self._lock:
+            pinned = pinned and not self._pin_failed
+            fits = [b for b in self._idle
+                    if b.pinned == pinned and b.capacity >= nbytes]
+            if fits:
+                buf = min(fits, key=lambda b: b.capacity)
+                self._idle.remove(buf)
+                return buf, True
+            self._largest = max(self._largest, nbytes)
+            capacity = 1 << max(0, self._largest - 1).bit_length()
+        return self._allocate(capacity, pinned), False
+
+    def _allocate(self, capacity: int, pinned: bool) -> StagingBuffer:
+        if pinned:
+            try:
+                return StagingBuffer(torch.empty(
+                    capacity, dtype=torch.uint8, pin_memory=True).numpy(),
+                    True)
+            except RuntimeError:
+                with self._lock:
+                    self._pin_failed = True
+        return StagingBuffer(np.empty(capacity, np.uint8), False)
+
+    def release(self, buf: StagingBuffer) -> None:
+        with self._lock:
+            self._idle.append(buf)
+            if len(self._idle) > self.MAX_IDLE:
+                self._idle.remove(min(self._idle, key=lambda b: b.capacity))
+
+    def idle(self) -> int:
+        """Buffers waiting to be reused."""
+        with self._lock:
+            return len(self._idle)
+
+
+# The one pool of the process: every store's gathers draw from it, so a
+# process with many stores (a checkpoint manager) holds no more idle
+# buffers than one.
+STAGING = StagingPool()
+
+
+def acquire_staging(store, nbytes: int) -> StagingBuffer:
+    """A staging buffer for a window of ``nbytes`` bytes of ``store``,
+    page-locked when the store's engine runs on a card; counted into
+    ``Telemetry.staging_reused`` or ``staging_allocated``."""
+    buf, reused = STAGING.acquire(nbytes,
+                                  store.engine.device.type == "cuda")
+    with store._tele_lock:
+        if reused:
+            store.telemetry.staging_reused += 1
+        else:
+            store.telemetry.staging_allocated += 1
+    return buf
+
+
+def launch_stages(store, compiled, stacked, mesh_rules, clock: StageClock,
+                  *, pinned: bool = False) -> np.ndarray:
     """A gathered stack through the store's engine, back on the host as
     ``(S, |targets|, B)``: ``copy_in`` (the stack to the engine's device;
     a stack the mesh splits is scattered by the launch), ``kernel`` (the
     engine's own timing, after the device is synchronised) and
     ``copy_out``, the three inside ``compute``. The launched bytes count
-    into ``Telemetry.h2d_bytes``: each reached the card from the host once.
-    Shared by the pipeline and the synchronous path."""
+    into ``Telemetry.h2d_bytes``: each reached the card from the host once;
+    into ``h2d_pinned_bytes`` too when the stack was gathered in
+    page-locked memory (``pinned``). When this returns the device has
+    finished with the stack. Shared by the pipeline and the synchronous
+    path."""
     engine = store.engine
     with clock.span("compute"):
         with clock.span("copy_in", "pipeline.copy_in"):
             stacked = engine.place(stacked, mesh_rules)
         with store._tele_lock:
             store.telemetry.h2d_bytes += math.prod(stacked.shape)
+            if pinned:
+                store.telemetry.h2d_pinned_bytes += math.prod(stacked.shape)
         with clock.span("kernel", "pipeline.kernel") as kernel:
             out = engine.execute(compiled, stacked, mesh_rules)
             kernel.seconds = engine.last_exec_seconds
@@ -225,7 +339,7 @@ class _Fetch:
     ``layout`` is the window's device-shard geometry (None = degraded /
     single device, one buffer). With a layout, ``bufs[i]`` is shard *i*'s
     slice of the ``(S, |reads|, B)`` batch, filled only by that shard's
-    reader pool.
+    reader pool. Every buffer is a view of ``staging``.
     """
     window: RepairWindow
     shape: tuple[int, int, int]
@@ -233,6 +347,7 @@ class _Fetch:
     bufs: list[np.ndarray]
     futures: list[Future]
     t_submit: float
+    staging: StagingBuffer
 
 
 @dataclasses.dataclass
@@ -313,6 +428,11 @@ class RepairPipeline:
         self.byte_budget = byte_budget
         self.hook = o.pipeline_hook or (lambda stage, index: None)
         self._span_lock = threading.Lock()
+        # Staging buffers of the run's prefetches, from acquire to release,
+        # and the size each asks for: the run's widest window, so that one
+        # buffer serves any of its windows.
+        self._staged: list[StagingBuffer] = []
+        self._stage_bytes = 0
 
     # ------------------------------------------------------------- windows
     def _windows(self, work: Sequence[tuple[list[int], frozenset[int], object]],
@@ -341,8 +461,8 @@ class RepairPipeline:
     # ------------------------------------------------------------- stages
     def _fill(self, buf: np.ndarray, i: int, j: int, sid: int, b: int,
               shard: int) -> None:
-        buf[i, j] = self.store._read_block(sid, b, shard=shard,
-                                           placement=self.placement)
+        self.store._read_block(sid, b, shard=shard, placement=self.placement,
+                               out=buf[i, j])
 
     def _prefetch(self, pools: list[ThreadPoolExecutor], win: RepairWindow
                   ) -> _Fetch:
@@ -356,7 +476,11 @@ class RepairPipeline:
         """
         reads = win.compiled.reads
         shape = (len(win.sids), len(reads), self.store.cfg.block_size)
-        layout, parts = plan_gather(shape, self.mesh_rules, self.placement)
+        staging = acquire_staging(self.store,
+                                  max(self._stage_bytes, math.prod(shape)))
+        self._staged.append(staging)
+        layout, parts = plan_gather(shape, self.mesh_rules, self.placement,
+                                    out=staging.flat)
         t0 = time.perf_counter()
         futures: list[Future] = []
         for part in parts:
@@ -367,7 +491,13 @@ class RepairPipeline:
                         for i, sid in enumerate(win.sids[part.lo:part.hi])
                         for j, b in enumerate(reads)]
         return _Fetch(win, shape, layout, [p.buf for p in parts],
-                      futures, t0)
+                      futures, t0, staging)
+
+    def _release(self, fetch: _Fetch) -> None:
+        """Hand a prefetch's staging buffer back to the pool: its reads
+        have all ended and its launch, if any, has returned."""
+        self._staged.remove(fetch.staging)
+        STAGING.release(fetch.staging)
 
     def _collect(self, fetch: _Fetch, clock: StageClock):
         """Wait out a prefetch. Returns the batch — a host stack for
@@ -393,11 +523,14 @@ class RepairPipeline:
         return assemble_shards(fetch.shape, self.mesh_rules, fetch.layout,
                                fetch.bufs)
 
-    def _launch(self, win: RepairWindow, stacked,
+    def _launch(self, fetch: _Fetch, stacked,
                 clock: StageClock) -> dict[int, np.ndarray]:
-        engine = self.store.engine
+        """Launch a gathered window, then release its staging buffer."""
+        engine, win = self.store.engine, fetch.window
         out = launch_stages(self.store, win.compiled, stacked,
-                            self.mesh_rules, clock)
+                            self.mesh_rules, clock,
+                            pinned=fetch.staging.pinned)
+        self._release(fetch)
         res = clock.target
         res.launches += 1
         res.devices = max(res.devices, engine.last_span)
@@ -437,11 +570,13 @@ class RepairPipeline:
                     raise IOError(f"stripes {sids} unrecoverable: "
                                   f"{sorted(down)}") from None
                 sub = RepairWindow(win.index, tuple(sids), down, compiled)
-                stacked = self._collect(self._prefetch(pools, sub), clock)
+                fetch = self._prefetch(pools, sub)
+                stacked = self._collect(fetch, clock)
                 if stacked is None:          # yet another failure; go again
+                    self._release(fetch)
                     retry.extend(sids)
                     continue
-                self._writeback(sub, self._launch(sub, stacked, clock),
+                self._writeback(sub, self._launch(fetch, stacked, clock),
                                 clock)
             pending = retry
         raise IOError(f"stripes {pending}: nodes kept failing during re-plan")
@@ -463,12 +598,18 @@ class RepairPipeline:
         res.windows = len(windows)
         if not windows:
             return res
+        self._stage_bytes = max(
+            len(w.sids) * len(w.compiled.reads) for w in windows
+        ) * self.store.cfg.block_size
         t_run = time.perf_counter()
         # One reader pool per gather shard (each simulated host's own
         # disks); a single pool when the mesh degrades to one device.
         num_pools = max(1, stripe_axis_span(self.mesh_rules))
         res.readers = self.threads * num_pools
         with contextlib.ExitStack() as stack:
+            # Runs last, once every reader has ended: a buffer still held
+            # (a window that raised, or a prefetch never consumed) goes back.
+            stack.callback(self._release_staged)
             readers = [stack.enter_context(ThreadPoolExecutor(
                 self.threads, thread_name_prefix=f"repair-read-s{s}"))
                 for s in range(num_pools)]
@@ -484,9 +625,10 @@ class RepairPipeline:
                 stacked = self._collect(fetch, clock)
                 self.hook("launch", win.index)
                 if stacked is None:
+                    self._release(fetch)
                     self._replan(readers, win, clock)
                     return None
-                rebuilt = self._launch(win, stacked, clock)
+                rebuilt = self._launch(fetch, stacked, clock)
                 self.hook("writeback", win.index)
                 return lambda: self._writeback(win, rebuilt, clock)
 
@@ -494,6 +636,10 @@ class RepairPipeline:
                                 writer=writer, clock=clock)
         res.wall_seconds = time.perf_counter() - t_run
         return res
+
+    def _release_staged(self) -> None:
+        while self._staged:
+            STAGING.release(self._staged.pop())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -46,7 +47,8 @@ from repro_torch.kernels.ops import effective_backend as _eff
 from repro_torch.serve.telemetry import LatencyRecorder
 
 from .options import RepairOptions, ServeOptions
-from .pipeline import STAGES, StageClock, launch_stages
+from .pipeline import (STAGES, STAGING, StageClock, acquire_staging,
+                       launch_stages)
 
 # Shared all-defaults ServeOptions: every read without explicit options
 # resolves its knobs through this one frozen instance.
@@ -73,6 +75,23 @@ def launch_step(cfg: "StoreConfig", num_reads: int,
     per_stripe = num_reads * cfg.block_size
     return max(1, min(window or cfg.batch_stripes, cfg.batch_stripes,
                       byte_budget // max(1, per_stripe)))
+
+
+def _read_into(path: Path, out: np.ndarray) -> np.ndarray:
+    """Fill ``out`` (a contiguous uint8 slot) with the file at ``path``,
+    which must hold exactly ``out.size`` bytes (else ``ValueError``). The
+    reads release the interpreter lock."""
+    view = memoryview(out).cast("B")
+    got = 0
+    with open(path, "rb", buffering=0) as f:
+        size = os.fstat(f.fileno()).st_size
+        if size == len(view):
+            while got < size and (n := f.readinto(view[got:])):
+                got += n
+    if got != len(view):
+        raise ValueError(f"block file {path} holds {max(size, got)} bytes, "
+                         f"expected {len(view)}")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,10 +209,16 @@ class Telemetry:
     # Block reads: wall time summed over reads, each from its file read to
     # the end of its link sleep; wall time with no read in flight (closed
     # up to the last read's start or end, and by repair_all at its ends);
-    # bytes of the repair launches' stacks moved from the host to the card.
+    # bytes of the repair launches' stacks moved from the host to the card,
+    # and of those the bytes copied from page-locked memory.
     reader_busy_seconds: float = 0.0
     no_read_seconds: float = 0.0
     h2d_bytes: int = 0
+    h2d_pinned_bytes: int = 0
+    # Repair windows whose gather buffer came from the staging pool, and
+    # those that needed a new one (repro_torch.ftx.pipeline.STAGING).
+    staging_reused: int = 0
+    staging_allocated: int = 0
     # Locality accounting (PlacementMap): reads served from the reading
     # shard's own nodes vs. cross-shard fetches, and how many gather bytes
     # each shard pulled from disk during repair gathers.
@@ -234,7 +259,8 @@ class Telemetry:
         for stage in STAGES:
             setattr(self, f"{stage}_seconds", 0.0)
         self.reader_busy_seconds = self.no_read_seconds = 0.0
-        self.h2d_bytes = 0
+        self.h2d_bytes = self.h2d_pinned_bytes = 0
+        self.staging_reused = self.staging_allocated = 0
         self.local_reads = self.remote_reads = 0
         self.gather_bytes_per_shard = {}
         self.blocks_relocated = 0
@@ -359,13 +385,21 @@ class StripeStore:
     def _read_block(self, sid: int, block: int,
                     rng: Optional[tuple[int, int]] = None, *,
                     shard: Optional[int] = None,
-                    placement=None) -> np.ndarray:
+                    placement=None,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
         """Read one block (or byte range), charging the simulated link model.
 
         ``shard``/``placement`` attribute the read to a gather shard: a read
         whose source node lives outside ``shard`` is *remote* and pays the
         placement's ``remote_multiplier`` on its link time. Reads with no
         shard (client/degraded paths) are charged as local.
+
+        ``out`` (a contiguous ``uint8`` slot of ``block_size`` bytes, with
+        no ``rng``) takes the whole block straight from the file, with no
+        intermediate array, and is returned. A file of another size raises
+        ``ValueError``, never ``OSError``: a damaged block is not a node
+        failure to replan around, and a slot is never left partly filled
+        with older bytes. A missing file still raises ``OSError``.
         """
         node = self.stripes[sid].node_of_block[block]
         if self.nodes[node] is NodeState.DOWN:
@@ -375,8 +409,13 @@ class StripeStore:
             self._close_no_read(t0)
             self._reads_in_flight += 1
         try:
-            data = np.fromfile(self._block_path(sid, block), dtype=np.uint8)
-            lo, hi = rng if rng else (0, len(data))
+            if out is None:
+                data = np.fromfile(self._block_path(sid, block),
+                                   dtype=np.uint8)
+                lo, hi = rng if rng else (0, len(data))
+            else:
+                data = _read_into(self._block_path(sid, block), out)
+                lo, hi = 0, len(data)
             local = placement is None or placement.is_local(node, shard)
             dt = ((hi - lo) * 8 / (self.cfg.bandwidth_gbps * 1e9)
                   + self.latency_ms[node] / 1e3)
@@ -895,7 +934,11 @@ class StripeStore:
         width; 1 on the synchronous paths) gives their occupancy,
         ``no_read_seconds`` is the call's wall time with no read in
         flight, and ``h2d_bytes`` the bytes its launches took from the
-        host to the device.
+        host to the device, ``h2d_pinned_bytes`` those of them copied from
+        page-locked memory. Each window gathers into a staging buffer from
+        the process's pool (``repro_torch.ftx.pipeline.STAGING``):
+        ``staging_reused`` windows found one there, ``staging_allocated``
+        needed a new one.
 
         ``placement`` (a ``repro_torch.dist.placement.PlacementMap``; defaults to
         the store's, else one derived from the node->shard default for the
@@ -1130,6 +1173,10 @@ class StripeStore:
             "reader_threads": readers,
             "no_read_seconds": t.no_read_seconds - before.no_read_seconds,
             "h2d_bytes": t.h2d_bytes - before.h2d_bytes,
+            "h2d_pinned_bytes": t.h2d_pinned_bytes - before.h2d_pinned_bytes,
+            "staging_reused": t.staging_reused - before.staging_reused,
+            "staging_allocated":
+                t.staging_allocated - before.staging_allocated,
             "repairs_local": t.repairs_local - before.repairs_local,
             "repairs_global": t.repairs_global - before.repairs_global,
             "local_reads": t.local_reads - before.local_reads,
@@ -1150,7 +1197,7 @@ class StripeStore:
         }
 
     def _gather_group(self, sids: list[int], reads: tuple[int, ...],
-                      mesh_rules, placement):
+                      mesh_rules, placement, out: np.ndarray):
         """Gather surviving blocks for a stripe group, shard by shard.
 
         Under a sharded mesh each device shard's slice of the batched
@@ -1160,15 +1207,17 @@ class StripeStore:
         (``repro_torch.dist.placement.assemble_shards``). No single-host
         stack of the full batch exists. Degraded/single-device launches
         keep the one-buffer fast path (attributed to gather shard 0).
-        Every read is charged local/remote against ``placement``.
+        Every read is charged local/remote against ``placement``. The
+        buffers are views of ``out`` (a flat staging buffer), each block
+        read from its file straight into its slot.
         """
         shape = (len(sids), len(reads), self.cfg.block_size)
-        layout, parts = plan_gather(shape, mesh_rules, placement)
+        layout, parts = plan_gather(shape, mesh_rules, placement, out=out)
         for part in parts:
             for i, sid in enumerate(sids[part.lo:part.hi]):
                 for j, b in enumerate(reads):
-                    part.buf[i, j] = self._read_block(
-                        sid, b, shard=part.shard, placement=placement)
+                    self._read_block(sid, b, shard=part.shard,
+                                     placement=placement, out=part.buf[i, j])
         if layout is None:
             return parts[0].buf
         return assemble_shards(shape, mesh_rules, layout,
@@ -1190,10 +1239,17 @@ class StripeStore:
         the launch."""
         if clock is None:
             clock = StageClock(self.telemetry, self._tele_lock)
-        with clock.span("read"):
-            stacked = self._gather_group(sids, compiled.reads, mesh_rules,
-                                         placement)
-        out = launch_stages(self, compiled, stacked, mesh_rules, clock)
+        staging = acquire_staging(
+            self, len(sids) * len(compiled.reads) * self.cfg.block_size)
+        try:
+            with clock.span("read"):
+                stacked = self._gather_group(sids, compiled.reads,
+                                             mesh_rules, placement,
+                                             staging.flat)
+            out = launch_stages(self, compiled, stacked, mesh_rules, clock,
+                                pinned=staging.pinned)
+        finally:
+            STAGING.release(staging)
         rebuilt = {b: out[:, t, :] for t, b in enumerate(compiled.targets)}
         with clock.span("write"):
             self._finish_repair(sids, down, compiled.meta, rebuilt, spare_of,

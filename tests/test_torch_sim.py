@@ -312,7 +312,8 @@ def test_entry_points_default_to_the_card():
 PORT_SPLIT = {"plan_seconds", "read_wait_seconds", "copy_in_seconds",
               "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
               "reader_busy_seconds", "reader_threads", "no_read_seconds",
-              "h2d_bytes"}
+              "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
+              "staging_allocated"}
 
 
 def test_measure_repair_bandwidth_equals_reference_on_twin_stores(tmp_path):
@@ -337,13 +338,18 @@ def test_measure_repair_bandwidth_equals_reference_on_twin_stores(tmp_path):
             timing |= {"sim_seconds", "gbps"}
             for k in ("sim_seconds", "gbps"):
                 assert got[k] == pytest.approx(want[k], rel=1e-12, abs=0)
-        # The port's own split of where the repair's time went: fields the
-        # reference does not report, timings but for the reader count and
-        # the bytes sent to the device (every block read, once).
+        # The port's own split of where the repair's time went and how its
+        # gathers were staged: fields the reference does not report,
+        # timings but for the reader count, the bytes sent to the device
+        # (every block read, once; none page-locked on the CPU) and one
+        # staging buffer a launch.
         assert set(got) - set(want) == PORT_SPLIT
         assert got["reader_threads"] == (1 if exact is not None else
                                          StoreConfig().prefetch_threads)
         assert got["h2d_bytes"] == got["bytes_read"]
+        assert got["h2d_pinned_bytes"] == 0
+        assert got["staging_reused"] + got["staging_allocated"] == \
+            got["launches"]
         timing |= PORT_SPLIT
         assert {k: v for k, v in got.items() if k not in timing} == \
             {k: v for k, v in want.items() if k not in timing}
