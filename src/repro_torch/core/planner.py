@@ -17,6 +17,7 @@ launch, instead of one launch per repaired block (DESIGN.md §4).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from collections import OrderedDict
@@ -134,7 +135,9 @@ class RepairPlanner:
         self._lock = threading.Lock()
 
     # ----------------------------------------------------------- cache core
-    def _get(self, key: tuple, build) -> CompiledPlan:
+    def _get(self, key: tuple, build, compiling=None) -> CompiledPlan:
+        """The cached plan of ``key``, built on a miss; ``compiling`` (a
+        zero-argument callable giving a context manager) wraps the build."""
         with self._lock:
             plan = self._cache.get(key)
             if plan is not None:
@@ -142,7 +145,9 @@ class RepairPlanner:
                 self._cache.move_to_end(key)
                 return plan
             self.stats.misses += 1
-        plan = build()  # solve outside the lock; duplicate work is harmless
+        # Solve outside the lock; duplicate work is harmless.
+        with compiling() if compiling else contextlib.nullcontext():
+            plan = build()
         with self._lock:
             self._cache[key] = plan
             self._cache.move_to_end(key)
@@ -207,13 +212,16 @@ class RepairPlanner:
                     f"inconsistent repair plan for block {failed}") from None
         return self._get(("single", failed, policy), build)
 
-    def multi_plan(self, failed) -> CompiledPlan:
+    def multi_plan(self, failed, *, compiling=None) -> CompiledPlan:
         """Compiled multi-node repair, cascade flattened to one matrix.
 
         Every block the structural planner repairs — including cascade steps
         that nominally read earlier repairs — is a linear combination of the
         plan's surviving read set, so the whole schedule compiles to a single
         ``(|failed|, |reads|)`` matrix and executes as one kernel launch.
+        ``compiling``, a zero-argument callable that gives a context
+        manager, wraps the compile when the plan is not cached (a caller's
+        span; ``StripeStore.repair_all`` times and counts its misses so).
         """
         failed = frozenset(failed)
         def build() -> CompiledPlan:
@@ -228,7 +236,7 @@ class RepairPlanner:
                 raise RuntimeError(
                     f"cannot reconstruct block {e.target} from {sorted(reads)}"
                 ) from None
-        return self._get(("multi", failed), build)
+        return self._get(("multi", failed), build, compiling)
 
     def serving_plan(self, block: int, down) -> CompiledPlan:
         """Cheapest feasible plan to serve one lost block under a down-set.

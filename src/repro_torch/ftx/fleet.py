@@ -143,6 +143,14 @@ class FleetRepairReport:
     # needed a new one (repro_torch.ftx.pipeline.STAGING).
     staging_reused: int = 0
     staging_allocated: int = 0
+    # Planning and the GF(2^8) kernel: multi-node plans compiled (planner
+    # cache misses, the planner.compile spans) and their seconds, inside
+    # plan_seconds; stripes of repairs_local repaired through the cascaded
+    # group; the launches' coefficient table chunks, ceil(reads / 64) each.
+    plans_compiled: int = 0
+    plan_compile_seconds: float = 0.0
+    repairs_cascaded: int = 0
+    kernel_table_chunks: int = 0
     # Locality accounting (repro_torch.dist.placement.PlacementMap): repair reads
     # served shard-locally vs. across shards, and the gather bytes each
     # shard pulled — the per-shard split of the batched read stack.
@@ -213,7 +221,9 @@ _SPLIT_FIELDS = ("plan_seconds", "read_wait_seconds", "copy_in_seconds",
                  "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
                  "reader_busy_seconds", "reader_threads", "no_read_seconds",
                  "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
-                 "staging_allocated")
+                 "staging_allocated", "plans_compiled",
+                 "plan_compile_seconds", "repairs_cascaded",
+                 "kernel_table_chunks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,9 +338,12 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
     ``plan/read_wait/copy_in/kernel/copy_out/drain_wait_seconds``, the
     readers' ``reader_busy_seconds`` over ``reader_threads`` (see
     ``reader_occupancy``), ``no_read_seconds`` and ``h2d_bytes`` say where
-    the caller's time went, and ``h2d_pinned_bytes``, ``staging_reused``
-    and ``staging_allocated`` how the gathers were staged
-    (``StripeStore.repair_all``).
+    the caller's time went, ``h2d_pinned_bytes``, ``staging_reused``
+    and ``staging_allocated`` how the gathers were staged, and
+    ``plans_compiled``/``plan_compile_seconds``, ``repairs_cascaded`` and
+    ``kernel_table_chunks`` what the planning compiled, which local
+    repairs took the cascaded group and how many coefficient table chunks
+    the kernel built (``StripeStore.repair_all``).
     ``options.mesh_rules`` (or an ambient ``with_rules`` context)
     device-shards each launch's stripe axis; the report's
     ``devices``/``device_launches`` fields record the resulting per-device

@@ -91,6 +91,7 @@ import torch
 from repro_torch.dist.placement import assemble_shards, plan_gather
 from repro_torch.dist.schedule import schedule_group
 from repro_torch.dist.stripes import align_stripe_window, stripe_axis_span
+from repro_torch.kernels.gf256_matmul import gf256_matmul_batched
 
 # A hook receives (stage, window_index) at: "prefetch" (reads submitted),
 # "launch" (about to execute), "writeback" (write submitted), "replan"
@@ -305,7 +306,10 @@ def launch_stages(store, compiled, stacked, mesh_rules, clock: StageClock,
     ``copy_out``, the three inside ``compute``. The launched bytes count
     into ``Telemetry.h2d_bytes``: each reached the card from the host once;
     into ``h2d_pinned_bytes`` too when the stack was gathered in
-    page-locked memory (``pinned``). When this returns the device has
+    page-locked memory (``pinned``). The coefficient table chunks that the
+    launch's GF(2^8) kernels built (the wrapper's count, 0 on another
+    backend or on the CPU) count into ``kernel_table_chunks``. When this
+    returns the device has
     finished with the stack. Shared by the pipeline and the synchronous
     path."""
     engine = store.engine
@@ -316,9 +320,13 @@ def launch_stages(store, compiled, stacked, mesh_rules, clock: StageClock,
             store.telemetry.h2d_bytes += math.prod(stacked.shape)
             if pinned:
                 store.telemetry.h2d_pinned_bytes += math.prod(stacked.shape)
+        chunks = gf256_matmul_batched.table_chunks
         with clock.span("kernel", "pipeline.kernel") as kernel:
             out = engine.execute(compiled, stacked, mesh_rules)
             kernel.seconds = engine.last_exec_seconds
+        with store._tele_lock:
+            store.telemetry.kernel_table_chunks += \
+                gf256_matmul_batched.table_chunks - chunks
         with clock.span("copy_out", "pipeline.copy_out"):
             return out.cpu().numpy()
 

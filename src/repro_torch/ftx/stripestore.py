@@ -15,6 +15,7 @@ sources, use the first k by simulated node latency).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import json
@@ -219,6 +220,16 @@ class Telemetry:
     # those that needed a new one (repro_torch.ftx.pipeline.STAGING).
     staging_reused: int = 0
     staging_allocated: int = 0
+    # Multi-node plans that repair_all's planning compiled (planner cache
+    # misses) and the seconds they took (inside plan_seconds); local
+    # repairs whose plan went through the cascaded group (counted in
+    # repairs_local too); the coefficient table chunks of the repair
+    # launches' GF(2^8) kernel, ceil(reads / 64) a launch
+    # (repro_torch.kernels.gf256_matmul.TABLE_CHUNK_ROWS).
+    plans_compiled: int = 0
+    plan_compile_seconds: float = 0.0
+    repairs_cascaded: int = 0
+    kernel_table_chunks: int = 0
     # Locality accounting (PlacementMap): reads served from the reading
     # shard's own nodes vs. cross-shard fetches, and how many gather bytes
     # each shard pulled from disk during repair gathers.
@@ -261,6 +272,9 @@ class Telemetry:
         self.reader_busy_seconds = self.no_read_seconds = 0.0
         self.h2d_bytes = self.h2d_pinned_bytes = 0
         self.staging_reused = self.staging_allocated = 0
+        self.plans_compiled = self.repairs_cascaded = 0
+        self.plan_compile_seconds = 0.0
+        self.kernel_table_chunks = 0
         self.local_reads = self.remote_reads = 0
         self.gather_bytes_per_shard = {}
         self.blocks_relocated = 0
@@ -938,7 +952,13 @@ class StripeStore:
         page-locked memory. Each window gathers into a staging buffer from
         the process's pool (``repro_torch.ftx.pipeline.STAGING``):
         ``staging_reused`` windows found one there, ``staging_allocated``
-        needed a new one.
+        needed a new one. ``plans_compiled`` counts the multi-node plans
+        the planning compiled (cache misses, each a ``planner.compile``
+        span inside ``repair.plan``) and ``plan_compile_seconds`` sums
+        them; ``repairs_cascaded`` counts the stripes of
+        ``repairs_local`` whose plan has a cascade step, and
+        ``kernel_table_chunks`` the GF(2^8) kernel's coefficient table
+        chunks over the launches (``ceil(reads / 64)`` each).
 
         ``placement`` (a ``repro_torch.dist.placement.PlacementMap``; defaults to
         the store's, else one derived from the node->shard default for the
@@ -1066,7 +1086,8 @@ class StripeStore:
             if batched:
                 for down, sids in groups:
                     try:
-                        compiled = self.engine.planner.multi_plan(down)
+                        compiled = self.engine.planner.multi_plan(
+                            down, compiling=lambda: self._compiling(clock))
                     except RuntimeError:
                         unrecoverable = IOError(
                             f"stripes {sids} unrecoverable: {sorted(down)}")
@@ -1177,6 +1198,12 @@ class StripeStore:
             "staging_reused": t.staging_reused - before.staging_reused,
             "staging_allocated":
                 t.staging_allocated - before.staging_allocated,
+            "plans_compiled": t.plans_compiled - before.plans_compiled,
+            "plan_compile_seconds":
+                t.plan_compile_seconds - before.plan_compile_seconds,
+            "repairs_cascaded": t.repairs_cascaded - before.repairs_cascaded,
+            "kernel_table_chunks":
+                t.kernel_table_chunks - before.kernel_table_chunks,
             "repairs_local": t.repairs_local - before.repairs_local,
             "repairs_global": t.repairs_global - before.repairs_global,
             "local_reads": t.local_reads - before.local_reads,
@@ -1195,6 +1222,15 @@ class StripeStore:
             "contiguous_local_read_fraction":
                 contig_local / sched_total if sched_total else 1.0,
         }
+
+    @contextlib.contextmanager
+    def _compiling(self, clock: StageClock):
+        """One multi-node plan compiled by ``repair_all``'s planning: the
+        ``planner.compile`` span, then counted."""
+        with clock.span("plan_compile", "planner.compile"):
+            yield
+        with self._tele_lock:
+            self.telemetry.plans_compiled += 1
 
     def _gather_group(self, sids: list[int], reads: tuple[int, ...],
                       mesh_rules, placement, out: np.ndarray):
@@ -1282,6 +1318,8 @@ class StripeStore:
         with self._tele_lock:
             if plan.all_local:
                 self.telemetry.repairs_local += len(sids)
+                if any(method == "cascade" for _, method in plan.steps):
+                    self.telemetry.repairs_cascaded += len(sids)
             else:
                 self.telemetry.repairs_global += len(sids)
             self.telemetry.blocks_relocated += relocated

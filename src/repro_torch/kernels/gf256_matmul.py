@@ -14,7 +14,10 @@ A tensor on the CPU runs the plain PyTorch version
 (``repro_torch.kernels.ref``); a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in a plain integer attribute
 (``gf256_matmul.launches``, ``gf256_matmul_batched.launches``), so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel, and beside them the
+coefficient table chunks its launches built (``table_chunks``:
+``ceil(k / TABLE_CHUNK_ROWS)`` a launch; a k past one chunk builds the
+next chunk's tables once the first chunk's rows are done).
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from . import ref as ref_lib
 # whenever a or b is zero.
 _EXP_SIZE = 1040
 _LOG_ZERO = 512
+# Input rows whose multiply tables a block holds at once (the kernel's
+# kChunkK).
+TABLE_CHUNK_ROWS = 64
 
 _COUNT_LOCK = threading.Lock()
 _TABLES: dict[torch.device, torch.Tensor] = {}
@@ -112,6 +118,13 @@ def _launch(coef: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _count(wrapper, k: int) -> None:
+    """One launch of ``wrapper`` over ``k`` input rows, counted."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.table_chunks += -(-k // TABLE_CHUNK_ROWS)
+
+
 def gf256_matmul_batched(coef: torch.Tensor,
                          data: torch.Tensor) -> torch.Tensor:
     """Batched GF(2^8) product ``coef (m,k) @ data (S,k,B) -> (S,m,B)``.
@@ -124,8 +137,7 @@ def gf256_matmul_batched(coef: torch.Tensor,
         return ref_lib.gf256_matmul_batched_ref(coef, data)
     out = _launch(coef, data)
     if out.numel():
-        with _COUNT_LOCK:
-            gf256_matmul_batched.launches += 1
+        _count(gf256_matmul_batched, coef.shape[1])
     return out
 
 
@@ -137,10 +149,9 @@ def gf256_matmul(coef: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         return ref_lib.gf256_matmul_ref(coef, data)
     out = _launch(coef, data[None])[0]
     if out.numel():
-        with _COUNT_LOCK:
-            gf256_matmul.launches += 1
+        _count(gf256_matmul, coef.shape[1])
     return out
 
 
-gf256_matmul_batched.launches = 0
-gf256_matmul.launches = 0
+gf256_matmul_batched.launches = gf256_matmul_batched.table_chunks = 0
+gf256_matmul.launches = gf256_matmul.table_chunks = 0

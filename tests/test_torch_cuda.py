@@ -267,6 +267,48 @@ def test_cuda_main_path_matches_cpu(cuda, backend, tmp_path, rng):
         assert f.read_bytes() == twin.read_bytes()
 
 
+def test_cuda_p8_repair_counts_two_table_chunks_a_global_launch(cuda,
+                                                                tmp_path,
+                                                                rng):
+    """The paper's widest stripe (k=96, r=5, p=4) on 105 nodes, one stripe
+    on each of its 15 arcs, two adjacent nodes lost: the card rebuilds the
+    CPU twin's block files, and the report counts the kernel's 64-row
+    table chunks as its wrapper does, two a launch of a 96-read plan."""
+    from repro_torch.ftx import StoreConfig, StripeStore, repair_failed_nodes
+
+    cfg = StoreConfig(scheme="cp-azure", k=96, r=5, p=4, block_size=4096,
+                      backend="gf", placement_policy="contiguous")
+    stores = [StripeStore(tmp_path / d.type, cfg, num_nodes=105, device=d)
+              for d in (cuda, torch.device("cpu"))]
+    data = rng.integers(0, 256, (15, 96 * 4096), dtype=np.uint8)
+    for st in stores:
+        for sid in range(15):
+            st.put(f"s{sid}", data[sid])
+        st.seal()
+        for sid, stripe in st.stripes.items():     # only the repair restores
+            for b, node in enumerate(stripe.node_of_block):
+                if node in (40, 41):
+                    st._block_path(sid, b).unlink()
+    before = gm.gf256_matmul_batched.table_chunks
+    rep, twin = [repair_failed_nodes(st, [40, 41], device=st.device)
+                 for st in stores]
+    assert gm.gf256_matmul_batched.table_chunks - before == \
+        rep.kernel_table_chunks
+    plans = [stores[0].engine.planner.multi_plan(
+        {b for b, n in enumerate(st.node_of_block) if n in (40, 41)})
+        for st in stores[0].stripes.values()]
+    assert rep.launches == len(plans) == 15
+    assert rep.kernel_table_chunks == sum(-(-len(p.reads) // 64)
+                                          for p in plans)
+    assert sum(len(p.reads) == 96 for p in plans) == rep.repairs_global > 0
+    assert twin.kernel_table_chunks == 0
+    files = sorted((tmp_path / "cuda").glob("node*/*.blk"))
+    assert len(files) == 15 * 105
+    for f in files:
+        other = tmp_path / "cpu" / f.relative_to(tmp_path / "cuda")
+        assert f.read_bytes() == other.read_bytes()
+
+
 BATCHED = {"gf": gm.gf256_matmul_batched,
            "crs": bme.bitmatrix_encode_batched,
            "mxu": bme.mod2_matmul_encode_batched}

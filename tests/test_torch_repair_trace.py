@@ -157,3 +157,28 @@ def test_no_span_is_opened_unless_the_caller_is_profiled(tmp_path,
             activities=[torch.profiler.ProfilerActivity.CPU]):
         _repair(store, True)
     assert set(opened) == set(NAMES)
+
+
+def test_compiled_plans_are_spans_inside_the_planning(tmp_path):
+    """Each plan the planning compiles (a cache miss) is one
+    ``planner.compile`` span inside ``repair.plan``; their durations sum
+    to the report's ``plan_compile_seconds`` within 1 ms. A repair whose
+    plans are cached compiles none."""
+    store = _store(tmp_path, stripes=2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("warm-up"):
+            pass
+        rep = _repair(store, True)
+    spans = [e for e in prof.events() if e.name == "planner.compile"]
+    plan = [e for e in prof.events() if e.name == "repair.plan"]
+    assert len(spans) == rep.plans_compiled == rep.patterns > 0
+    assert all(any(p.time_range.start <= e.time_range.start
+                   and e.time_range.end <= p.time_range.end for p in plan)
+               for e in spans)
+    assert sum(e.time_range.end - e.time_range.start
+               for e in spans) / 1e6 == pytest.approx(
+                   rep.plan_compile_seconds, abs=1e-3)
+    assert 0 < rep.plan_compile_seconds <= rep.plan_seconds
+    again = _repair(store, False)
+    assert (again.plans_compiled, again.plan_compile_seconds) == (0, 0.0)

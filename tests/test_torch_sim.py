@@ -313,7 +313,8 @@ PORT_SPLIT = {"plan_seconds", "read_wait_seconds", "copy_in_seconds",
               "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
               "reader_busy_seconds", "reader_threads", "no_read_seconds",
               "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
-              "staging_allocated"}
+              "staging_allocated", "plans_compiled", "plan_compile_seconds",
+              "repairs_cascaded", "kernel_table_chunks"}
 
 
 def test_measure_repair_bandwidth_equals_reference_on_twin_stores(tmp_path):
@@ -350,6 +351,8 @@ def test_measure_repair_bandwidth_equals_reference_on_twin_stores(tmp_path):
         assert got["h2d_pinned_bytes"] == 0
         assert got["staging_reused"] + got["staging_allocated"] == \
             got["launches"]
+        assert got["plans_compiled"] == got["patterns"]
+        assert got["kernel_table_chunks"] == 0
         timing |= PORT_SPLIT
         assert {k: v for k, v in got.items() if k not in timing} == \
             {k: v for k, v in want.items() if k not in timing}
