@@ -136,6 +136,17 @@ class FleetRepairReport:
     # those the bytes copied from page-locked memory.
     reader_busy_seconds: float = 0.0
     reader_threads: int = 1
+    # The reads' own time in parts, summed over reads (see
+    # StripeStore.repair_all): file open and close, bytes into the slot,
+    # link sleep asked for, its overshoot, telemetry lock waits, the
+    # reader pools' hand-off, and the pools' threads' CPU time.
+    read_open_seconds: float = 0.0
+    read_copy_seconds: float = 0.0
+    read_sleep_seconds: float = 0.0
+    read_overshoot_seconds: float = 0.0
+    read_lock_seconds: float = 0.0
+    read_handoff_seconds: float = 0.0
+    read_cpu_seconds: float = 0.0
     no_read_seconds: float = 0.0
     h2d_bytes: int = 0
     h2d_pinned_bytes: int = 0
@@ -210,6 +221,15 @@ class FleetRepairReport:
         return self.reader_busy_seconds / slots if slots > 0 else 0.0
 
     @property
+    def read_rest_seconds(self) -> float:
+        """The readers' busy time outside the timed parts of their reads
+        (open, copy, sleep, overshoot, lock): Python between the steps."""
+        return self.reader_busy_seconds - (
+            self.read_open_seconds + self.read_copy_seconds
+            + self.read_sleep_seconds + self.read_overshoot_seconds
+            + self.read_lock_seconds)
+
+    @property
     def local_read_fraction(self) -> float:
         """Fraction of repair reads served from the reading shard's nodes."""
         total = self.local_reads + self.remote_reads
@@ -219,7 +239,11 @@ class FleetRepairReport:
 # repair_all's fields that the report carries as they are.
 _SPLIT_FIELDS = ("plan_seconds", "read_wait_seconds", "copy_in_seconds",
                  "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
-                 "reader_busy_seconds", "reader_threads", "no_read_seconds",
+                 "reader_busy_seconds", "reader_threads",
+                 "read_open_seconds", "read_copy_seconds",
+                 "read_sleep_seconds", "read_overshoot_seconds",
+                 "read_lock_seconds", "read_handoff_seconds",
+                 "read_cpu_seconds", "no_read_seconds",
                  "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
                  "staging_allocated", "plans_compiled",
                  "plan_compile_seconds", "repairs_cascaded",
@@ -338,8 +362,13 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
     ``plan/read_wait/copy_in/kernel/copy_out/drain_wait_seconds``, the
     readers' ``reader_busy_seconds`` over ``reader_threads`` (see
     ``reader_occupancy``), ``no_read_seconds`` and ``h2d_bytes`` say where
-    the caller's time went, ``h2d_pinned_bytes``, ``staging_reused``
-    and ``staging_allocated`` how the gathers were staged, and
+    the caller's time went, ``read_open_seconds``, ``read_copy_seconds``,
+    ``read_sleep_seconds``, ``read_overshoot_seconds``,
+    ``read_lock_seconds``, ``read_handoff_seconds`` and
+    ``read_cpu_seconds`` (with ``read_rest_seconds``, the busy time
+    outside the first five) where the readers' went, ``h2d_pinned_bytes``,
+    ``staging_reused`` and ``staging_allocated`` how the gathers were
+    staged, and
     ``plans_compiled``/``plan_compile_seconds``, ``repairs_cascaded`` and
     ``kernel_table_chunks`` what the planning compiled, which local
     repairs took the cascaded group and how many coefficient table chunks

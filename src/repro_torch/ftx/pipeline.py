@@ -441,6 +441,9 @@ class RepairPipeline:
         # buffer serves any of its windows.
         self._staged: list[StagingBuffer] = []
         self._stage_bytes = 0
+        # Each reader thread's CPU clock and its reading at the thread's
+        # start (_reader_started).
+        self._reader_clocks: list[tuple[int, float]] = []
 
     # ------------------------------------------------------------- windows
     def _windows(self, work: Sequence[tuple[list[int], frozenset[int], object]],
@@ -468,9 +471,9 @@ class RepairPipeline:
 
     # ------------------------------------------------------------- stages
     def _fill(self, buf: np.ndarray, i: int, j: int, sid: int, b: int,
-              shard: int) -> None:
+              shard: int, submitted: float) -> None:
         self.store._read_block(sid, b, shard=shard, placement=self.placement,
-                               out=buf[i, j])
+                               out=buf[i, j], submitted=submitted)
 
     def _prefetch(self, pools: list[ThreadPoolExecutor], win: RepairWindow
                   ) -> _Fetch:
@@ -495,7 +498,7 @@ class RepairPipeline:
             pool = pools[part.slice_.index % len(pools)] if layout \
                 else pools[0]
             futures += [pool.submit(self._fill, part.buf, i, j, sid, b,
-                                    part.shard)
+                                    part.shard, t0)
                         for i, sid in enumerate(win.sids[part.lo:part.hi])
                         for j, b in enumerate(reads)]
         return _Fetch(win, shape, layout, [p.buf for p in parts],
@@ -619,8 +622,12 @@ class RepairPipeline:
             # (a window that raised, or a prefetch never consumed) goes back.
             stack.callback(self._release_staged)
             readers = [stack.enter_context(ThreadPoolExecutor(
-                self.threads, thread_name_prefix=f"repair-read-s{s}"))
+                self.threads, thread_name_prefix=f"repair-read-s{s}",
+                initializer=self._reader_started))
                 for s in range(num_pools)]
+            # Runs before the reader pools shut down, while their threads
+            # (idle once every read has ended) can still be clocked.
+            stack.callback(self._count_reader_cpu)
             writer = stack.enter_context(ThreadPoolExecutor(
                 1, thread_name_prefix="repair-write"))
 
@@ -644,6 +651,25 @@ class RepairPipeline:
                                 writer=writer, clock=clock)
         res.wall_seconds = time.perf_counter() - t_run
         return res
+
+    def _reader_started(self) -> None:
+        """Reader pool initializer: note the thread's CPU clock and what
+        it reads now (nothing on a host with no per-thread CPU clocks)."""
+        if not hasattr(time, "pthread_getcpuclockid"):
+            return
+        clock = time.pthread_getcpuclockid(threading.get_ident())
+        with self._span_lock:
+            self._reader_clocks.append((clock, time.clock_gettime(clock)))
+
+    def _count_reader_cpu(self) -> None:
+        """Add the reader threads' CPU time since each started to the
+        store's ``read_cpu_seconds``: read from the coordinator, so that
+        no read pays for a CPU clock reading."""
+        with self._span_lock:
+            clocks = list(self._reader_clocks)
+        cpu = sum(time.clock_gettime(clock) - start for clock, start in clocks)
+        with self.store._tele_lock:
+            self.store.telemetry.read_cpu_seconds += cpu
 
     def _release_staged(self) -> None:
         while self._staged:

@@ -61,6 +61,10 @@ class NodeState(enum.Enum):
     DOWN = "down"
 
 
+# The parts of a block read's own time (Telemetry.read_<part>_seconds).
+READ_PARTS = ("open", "copy", "sleep", "overshoot", "lock", "handoff", "cpu")
+
+
 # Cap on the gathered (S, |reads|, B) host stack per batched repair launch;
 # chunking shrinks S below cfg.batch_stripes when reads x block_size is wide.
 _BATCH_BYTE_BUDGET = 256 << 20
@@ -78,21 +82,26 @@ def launch_step(cfg: "StoreConfig", num_reads: int,
                       byte_budget // max(1, per_stripe)))
 
 
-def _read_into(path: Path, out: np.ndarray) -> np.ndarray:
+def _read_into(path: Path, out: np.ndarray) -> tuple[float, float]:
     """Fill ``out`` (a contiguous uint8 slot) with the file at ``path``,
     which must hold exactly ``out.size`` bytes (else ``ValueError``). The
-    reads release the interpreter lock."""
+    reads release the interpreter lock. Returns the seconds spent opening,
+    sizing and closing the file, and those spent reading into ``out``."""
     view = memoryview(out).cast("B")
     got = 0
+    t0 = time.perf_counter()
     with open(path, "rb", buffering=0) as f:
         size = os.fstat(f.fileno()).st_size
+        t1 = time.perf_counter()
         if size == len(view):
             while got < size and (n := f.readinto(view[got:])):
                 got += n
+        t2 = time.perf_counter()
+    t3 = time.perf_counter()
     if got != len(view):
         raise ValueError(f"block file {path} holds {max(size, got)} bytes, "
                          f"expected {len(view)}")
-    return out
+    return (t1 - t0) + (t3 - t2), t2 - t1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +229,23 @@ class Telemetry:
     # those that needed a new one (repro_torch.ftx.pipeline.STAGING).
     staging_reused: int = 0
     staging_allocated: int = 0
+    # Block reads' own time in parts, summed over reads: opening, sizing
+    # and closing the file on the slot path; the bytes into the slot (the
+    # whole np.fromfile call on the other paths); the link sleep asked for,
+    # and the sleep's wall time beyond it; waits to enter the read's two
+    # _tele_lock sections; on a reader pool, from when the read could be
+    # taken (submitted, and the thread's previous read ended) to its
+    # start. And the reader pools' threads' CPU time, from each thread's
+    # start to the pool's end (its reads and the hand-offs between them;
+    # RepairPipeline reads their CPU clocks, since a CPU clock read on
+    # every read costs the read far more than its own time on some hosts).
+    read_open_seconds: float = 0.0
+    read_copy_seconds: float = 0.0
+    read_sleep_seconds: float = 0.0
+    read_overshoot_seconds: float = 0.0
+    read_lock_seconds: float = 0.0
+    read_handoff_seconds: float = 0.0
+    read_cpu_seconds: float = 0.0
     # Multi-node plans that repair_all's planning compiled (planner cache
     # misses) and the seconds they took (inside plan_seconds); local
     # repairs whose plan went through the cascaded group (counted in
@@ -272,6 +298,8 @@ class Telemetry:
         self.reader_busy_seconds = self.no_read_seconds = 0.0
         self.h2d_bytes = self.h2d_pinned_bytes = 0
         self.staging_reused = self.staging_allocated = 0
+        for part in READ_PARTS:
+            setattr(self, f"read_{part}_seconds", 0.0)
         self.plans_compiled = self.repairs_cascaded = 0
         self.plan_compile_seconds = 0.0
         self.kernel_table_chunks = 0
@@ -368,6 +396,8 @@ class StripeStore:
         # the count is 0): Telemetry.no_read_seconds, under _tele_lock.
         self._reads_in_flight = 0
         self._no_read_since = time.perf_counter()
+        # When each reader thread's last block read ended (``end``).
+        self._reader = threading.local()
         self.stripes: dict[int, Stripe] = {}
         self.objects: dict[str, ObjectMeta] = {}
         self.telemetry = Telemetry()
@@ -400,7 +430,8 @@ class StripeStore:
                     rng: Optional[tuple[int, int]] = None, *,
                     shard: Optional[int] = None,
                     placement=None,
-                    out: Optional[np.ndarray] = None) -> np.ndarray:
+                    out: Optional[np.ndarray] = None,
+                    submitted: Optional[float] = None) -> np.ndarray:
         """Read one block (or byte range), charging the simulated link model.
 
         ``shard``/``placement`` attribute the read to a gather shard: a read
@@ -414,21 +445,34 @@ class StripeStore:
         ``ValueError``, never ``OSError``: a damaged block is not a node
         failure to replan around, and a slot is never left partly filled
         with older bytes. A missing file still raises ``OSError``.
+
+        ``submitted`` (``time.perf_counter()`` seconds) is when a reader
+        pool was handed the read; the wait from then, or from the end of
+        the thread's previous read if later, to the read's start is summed
+        into ``Telemetry.read_handoff_seconds``.
         """
         node = self.stripes[sid].node_of_block[block]
         if self.nodes[node] is NodeState.DOWN:
             raise IOError(f"node {node} is down")
+        # The read's own time, in parts (Telemetry.read_*_seconds but the
+        # CPU time): wall clock readings held in locals and summed in the
+        # closing lock section.
         t0 = time.perf_counter()
         with self._tele_lock:
+            t_in = time.perf_counter()
             self._close_no_read(t0)
             self._reads_in_flight += 1
+        asked = overshoot = 0.0
         try:
             if out is None:
+                t_copy = time.perf_counter()
                 data = np.fromfile(self._block_path(sid, block),
                                    dtype=np.uint8)
+                opened, copied = 0.0, time.perf_counter() - t_copy
                 lo, hi = rng if rng else (0, len(data))
             else:
-                data = _read_into(self._block_path(sid, block), out)
+                opened, copied = _read_into(self._block_path(sid, block), out)
+                data = out
                 lo, hi = 0, len(data)
             local = placement is None or placement.is_local(node, shard)
             dt = ((hi - lo) * 8 / (self.cfg.bandwidth_gbps * 1e9)
@@ -440,16 +484,33 @@ class StripeStore:
                 # readers pay it in full, the pipeline's prefetch pool
                 # overlaps it with compute — exactly the effect under
                 # measurement.
-                time.sleep(self.cfg.io_stall_scale * dt)
+                asked = self.cfg.io_stall_scale * dt
+                t_sleep = time.perf_counter()
+                time.sleep(asked)
+                overshoot = time.perf_counter() - t_sleep - asked
         except BaseException:
+            t1 = time.perf_counter()
             with self._tele_lock:
-                self._read_done(t0, time.perf_counter())
+                self._read_done(t0, t1)
+            self._reader.end = t1
             raise
+        t_lock = time.perf_counter()
         with self._tele_lock:
-            self._read_done(t0, time.perf_counter())
+            t1 = time.perf_counter()
+            self._read_done(t0, t1)
             self.telemetry.blocks_read += 1
             self.telemetry.bytes_read += hi - lo
             self.telemetry.sim_seconds += dt
+            self.telemetry.read_open_seconds += opened
+            self.telemetry.read_copy_seconds += copied
+            self.telemetry.read_sleep_seconds += asked
+            self.telemetry.read_overshoot_seconds += overshoot
+            self.telemetry.read_lock_seconds += (t_in - t0) + (t1 - t_lock)
+            if submitted is not None:
+                # A pool's reader could take this read once it was
+                # submitted and the thread's previous read had ended.
+                self.telemetry.read_handoff_seconds += t0 - max(
+                    submitted, getattr(self._reader, "end", submitted))
             if local:
                 self.telemetry.local_reads += 1
             else:
@@ -457,6 +518,7 @@ class StripeStore:
             if shard is not None:
                 gbs = self.telemetry.gather_bytes_per_shard
                 gbs[shard] = gbs.get(shard, 0) + (hi - lo)
+        self._reader.end = t1
         return data[lo:hi]
 
     def _close_no_read(self, now: float) -> None:
@@ -945,11 +1007,19 @@ class StripeStore:
         are also spans of its trace (``repro_torch.ftx.pipeline``). The
         readers: ``reader_busy_seconds`` (wall time summed over block
         reads, link sleeps included) over ``reader_threads`` (the pools'
-        width; 1 on the synchronous paths) gives their occupancy,
-        ``no_read_seconds`` is the call's wall time with no read in
-        flight, and ``h2d_bytes`` the bytes its launches took from the
-        host to the device, ``h2d_pinned_bytes`` those of them copied from
-        page-locked memory. Each window gathers into a staging buffer from
+        width; 1 on the synchronous paths) gives their occupancy, and
+        the reads' own time splits into ``read_open_seconds`` (opening,
+        sizing and closing the block file), ``read_copy_seconds`` (the
+        bytes into the slot), ``read_sleep_seconds`` (the link sleep asked
+        for), ``read_overshoot_seconds`` (the sleep's wall time beyond
+        it), ``read_lock_seconds`` (waits on the store's telemetry lock),
+        ``read_handoff_seconds`` (the reader pools' wait from a read's
+        being ready to its start) and ``read_cpu_seconds`` (the reader
+        pools' threads' CPU time, their reads and hand-offs); the last two
+        are 0 on the synchronous paths. ``no_read_seconds`` is the call's
+        wall time with no read in flight, and ``h2d_bytes`` the bytes its
+        launches took from the host to the device, ``h2d_pinned_bytes``
+        those of them copied from page-locked memory. Each window gathers into a staging buffer from
         the process's pool (``repro_torch.ftx.pipeline.STAGING``):
         ``staging_reused`` windows found one there, ``staging_allocated``
         needed a new one. ``plans_compiled`` counts the multi-node plans
@@ -1165,6 +1235,10 @@ class StripeStore:
                  - getattr(before, f"{stage}_seconds") for stage in STAGES}
         stage_sum = (spent["read_seconds"] + spent["compute_seconds"]
                      + spent["write_seconds"])
+        read_parts = {f"read_{part}_seconds":
+                      getattr(t, f"read_{part}_seconds")
+                      - getattr(before, f"read_{part}_seconds")
+                      for part in READ_PARTS}
         return {
             "stripes_repaired": sum(len(sids) for sids in affected.values()),
             "patterns": len(affected),
@@ -1192,6 +1266,7 @@ class StripeStore:
             "reader_busy_seconds":
                 t.reader_busy_seconds - before.reader_busy_seconds,
             "reader_threads": readers,
+            **read_parts,
             "no_read_seconds": t.no_read_seconds - before.no_read_seconds,
             "h2d_bytes": t.h2d_bytes - before.h2d_bytes,
             "h2d_pinned_bytes": t.h2d_pinned_bytes - before.h2d_pinned_bytes,

@@ -1,8 +1,9 @@
 """Where a repair's time goes, on the CPU (``device="cpu"``): the calling
 thread's stage split (plan, read wait, copy in, kernel, copy out, drain
 wait), the readers' busy time and the time with no read in flight, the
-bytes sent to the device, and the same spans on a ``torch.profiler``
-trace when, and only when, a profiler records the calling thread."""
+parts of a block read's own time, the bytes sent to the device, and the
+same spans on a ``torch.profiler`` trace when, and only when, a profiler
+records the calling thread."""
 import collections
 import threading
 
@@ -20,12 +21,14 @@ NAMES = {"repair.plan": "plan", "pipeline.read_wait": "read_wait",
          "pipeline.copy_out": "copy_out",
          "pipeline.drain_wait": "drain_wait"}
 STALL = 0.05                       # share of each read's link time slept
+# The parts of a block read's own time (Telemetry.read_<part>_seconds).
+READ_PARTS = ("open", "copy", "sleep", "overshoot", "lock", "handoff", "cpu")
 
 
-def _store(tmp_path, *, stripes=8, window=4, threads=4):
+def _store(tmp_path, *, stripes=8, window=4, threads=4, stall=STALL):
     cfg = StoreConfig(scheme="cp-azure", k=6, r=2, p=2, block_size=4096,
                       batch_stripes=window, pipeline_window=window,
-                      prefetch_threads=threads, io_stall_scale=STALL)
+                      prefetch_threads=threads, io_stall_scale=stall)
     store = StripeStore(tmp_path, cfg, device="cpu")
     payload = np.random.default_rng(5).integers(
         0, 256, stripes * cfg.k * cfg.block_size, dtype=np.uint8)
@@ -74,19 +77,74 @@ def test_repair_reports_its_split(tmp_path, pipeline):
             == pytest.approx(rep.wall_seconds, abs=1e-6)
 
 
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_repair_splits_its_reads_own_time(tmp_path, pipeline):
+    """Every part of a read's own time is there and none is negative; the
+    parts the read waits out on its own thread fit inside the readers'
+    busy time, with the rest (Python between the steps) left over; the
+    sleep asked for is the scaled link time; only a reader pool hands
+    reads off, and only its threads' CPU time is counted."""
+    store = _store(tmp_path)
+    rep = _repair(store, pipeline)
+    parts = {part: getattr(rep, f"read_{part}_seconds")
+             for part in READ_PARTS}
+    assert all(v >= 0 for v in parts.values()), parts
+    assert parts["open"] > 0 and parts["copy"] > 0 and parts["sleep"] > 0
+    assert parts["sleep"] == pytest.approx(STALL * rep.sim_seconds)
+    timed = (parts["open"] + parts["copy"] + parts["sleep"]
+             + parts["overshoot"] + parts["lock"])
+    assert timed <= rep.reader_busy_seconds + 1e-9
+    assert rep.read_rest_seconds == pytest.approx(
+        rep.reader_busy_seconds - timed)
+    assert parts["cpu"] <= rep.reader_busy_seconds + 1e-6
+    if pipeline:
+        assert parts["handoff"] > 0 and parts["cpu"] > 0
+    else:
+        assert parts["handoff"] == 0 and parts["cpu"] == 0
+
+
+def test_no_link_sleep_reads_no_sleep_or_overshoot(tmp_path):
+    store = _store(tmp_path, stall=0.0)
+    rep = _repair(store, True)
+    assert rep.blocks_read > 0 and rep.read_copy_seconds > 0
+    assert rep.read_sleep_seconds == 0 and rep.read_overshoot_seconds == 0
+
+
+def test_a_degraded_read_counts_its_reads_as_copies(tmp_path):
+    """A degraded read of a lost block reads its sources' byte ranges
+    with ``np.fromfile``: the whole call is copy time, none is open
+    time."""
+    store = _store(tmp_path, stripes=1)
+    sid = next(iter(store.stripes))
+    node = store.stripes[sid].node_of_block[0]
+    store.fail_node(node)
+    before = store.telemetry.copy()
+    store.read(sid, 0)
+    tele = store.telemetry
+    assert tele.degraded_reads == before.degraded_reads + 1
+    assert tele.blocks_read > before.blocks_read
+    assert tele.read_copy_seconds > before.read_copy_seconds
+    assert tele.read_open_seconds == before.read_open_seconds
+    assert tele.read_handoff_seconds == before.read_handoff_seconds
+
+
 def test_store_telemetry_sums_the_split_over_repairs(tmp_path):
     store = _store(tmp_path)
     reps = [_repair(store, True), _repair(store, False)]
     tele = store.telemetry
+    reads = [f"read_{part}_seconds" for part in READ_PARTS]
     for field in [f"{s}_seconds" for s in SPLIT] + [
-            "reader_busy_seconds", "h2d_bytes"]:
+            "reader_busy_seconds", "h2d_bytes"] + reads:
         assert getattr(tele, field) == pytest.approx(
             sum(getattr(r, field) for r in reps)), field
     assert tele.no_read_seconds >= sum(r.no_read_seconds for r in reps)
     snap = tele.reset()
     assert snap.h2d_bytes == sum(r.h2d_bytes for r in reps)
+    assert snap.read_sleep_seconds == pytest.approx(
+        sum(r.read_sleep_seconds for r in reps))
     assert tele.h2d_bytes == 0 and tele.reader_busy_seconds == 0
     assert all(getattr(tele, f"{s}_seconds") == 0 for s in SPLIT)
+    assert all(getattr(tele, field) == 0 for field in reads)
 
 
 def _span_sums(prof):
