@@ -34,6 +34,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import MeshRules
 from repro_torch.dist.stripes import ShardedBatch, stripe_span
+from repro_torch.kernels.gf256_matmul import table_chunks
 from repro_torch.kernels.ops import (BIT_BACKENDS, as_u8, default_backend,
                                      effective_backend, encode_batch_op,
                                      gf_matmul_batch_op, require_backend)
@@ -59,6 +60,10 @@ class BatchedCodecEngine:
     # torch.cuda.synchronize() so span accounting upstream sees real
     # compute time rather than the enqueue.
     last_exec_seconds: float = dataclasses.field(default=0.0, init=False)
+    # Coefficient table chunks the most recent execute() launch's GF(2^8)
+    # kernels built: one launch per device slice, each
+    # table_chunks(|reads|); 0 when the kernel did not run.
+    last_table_chunks: int = dataclasses.field(default=0, init=False)
     # Formulation the most recent launch actually ran (kernels.ops.
     # effective_backend): equals ``backend`` except that a "gf" batch on
     # the CPU runs the plain table path and reports "ref".
@@ -126,6 +131,9 @@ class BatchedCodecEngine:
         self.last_span = stripe_span(stacked.shape, mr)
         stacked = self.place(stacked, mesh_rules)
         self.effective_backend = effective_backend(self.backend, self.device)
+        self.last_table_chunks = (
+            self.last_span * table_chunks(len(plan.reads))
+            if self.effective_backend == "gf" else 0)
         bitmatrix = self._bits(plan)
         t0 = time.perf_counter()
         out = gf_matmul_batch_op(plan.coeffs, stacked, backend=self.backend,

@@ -28,6 +28,7 @@ from repro_torch.core.schemes import make_scheme
 from repro_torch.device import resolve_device
 
 from .options import RepairOptions
+from .stripestore import SERVE_FIELDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +95,10 @@ def size_fleet(spec: FleetSpec,
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class FleetRepairReport:
-    """What a node-failure repair cost, fleet-wide."""
+    """What a node-failure repair cost, fleet-wide. Each field but
+    ``failed_nodes`` and ``plan_cache`` is the key of the same name of
+    ``StripeStore.repair_all``'s result, and this is where each is
+    documented."""
     failed_nodes: tuple[int, ...]
     stripes_repaired: int
     patterns: int               # distinct per-stripe failure patterns seen
@@ -115,31 +119,39 @@ class FleetRepairReport:
     pipelined: bool = False
     windows: int = 0            # pipeline windows executed
     replans: int = 0            # windows re-planned after mid-repair failures
-    read_seconds: float = 0.0
-    compute_seconds: float = 0.0
-    write_seconds: float = 0.0
-    overlap_seconds: float = 0.0
-    # The calling thread's split of those stages (StripeStore.repair_all):
-    # planning and window creation, blocked on reads, copy to the device,
-    # kernel, copy back (the last three make compute_seconds), blocked on
-    # the last write-backs. Spans of a torch.profiler trace when one
-    # records the caller.
+    read_seconds: float = 0.0   # window gathers, submit to last read
+    compute_seconds: float = 0.0  # copy in, kernel and copy out
+    write_seconds: float = 0.0  # write-backs
+    overlap_seconds: float = 0.0  # read + compute + write beyond the wall
+    # The calling thread's split of those stages: planning (grouping,
+    # plans, destinations) and window creation; blocked on a window's
+    # reads; the copy to the device, the kernel (the engine's own timing)
+    # and the copy back, which make compute_seconds; blocked on the last
+    # write-backs (0 on the synchronous paths, like read_wait). Spans of a
+    # torch.profiler trace when one records the caller (repair.plan,
+    # pipeline.read_wait, ...; repro_torch.ftx.pipeline).
     plan_seconds: float = 0.0
     read_wait_seconds: float = 0.0
     copy_in_seconds: float = 0.0
     kernel_seconds: float = 0.0
     copy_out_seconds: float = 0.0
     drain_wait_seconds: float = 0.0
-    # The readers: busy wall time summed over block reads (link sleeps
-    # included) out of reader_threads x wall_seconds; the wall time with
-    # no read in flight; the bytes the launches took to the device, and of
-    # those the bytes copied from page-locked memory.
+    # The readers: wall time summed over block reads, each from its file
+    # read to the end of its link sleep, out of reader_threads x
+    # wall_seconds (reader_threads: the pools' width; 1 on the synchronous
+    # paths, which read inline).
     reader_busy_seconds: float = 0.0
     reader_threads: int = 1
-    # The reads' own time in parts, summed over reads (see
-    # StripeStore.repair_all): file open and close, bytes into the slot,
-    # link sleep asked for, its overshoot, telemetry lock waits, the
-    # reader pools' hand-off, and the pools' threads' CPU time.
+    # The reads' own time in parts, summed over reads (divide by
+    # blocks_read for one read): opening, sizing and closing the block
+    # file on the slot path; the bytes into the slot (the whole
+    # np.fromfile call on the other paths); the link sleep asked for; the
+    # sleep's wall time beyond it; waits to enter the read's two sections
+    # under the store's telemetry lock; on a reader pool, from when a read
+    # could be taken (submitted, and the thread's previous read ended) to
+    # its start; and the reader pools' threads' CPU time, from each
+    # thread's start to the pool's end (their reads and the hand-offs).
+    # Hand-off and CPU time are 0 on the synchronous paths.
     read_open_seconds: float = 0.0
     read_copy_seconds: float = 0.0
     read_sleep_seconds: float = 0.0
@@ -147,7 +159,11 @@ class FleetRepairReport:
     read_lock_seconds: float = 0.0
     read_handoff_seconds: float = 0.0
     read_cpu_seconds: float = 0.0
+    # The call's wall time with no block read in flight.
     no_read_seconds: float = 0.0
+    # Bytes of the launches' stacks moved from the host to the device, each
+    # block read once; and of those the bytes copied from page-locked
+    # memory (0 on the CPU).
     h2d_bytes: int = 0
     h2d_pinned_bytes: int = 0
     # Windows whose gather buffer the staging pool reused, and those that
@@ -155,9 +171,11 @@ class FleetRepairReport:
     staging_reused: int = 0
     staging_allocated: int = 0
     # Planning and the GF(2^8) kernel: multi-node plans compiled (planner
-    # cache misses, the planner.compile spans) and their seconds, inside
-    # plan_seconds; stripes of repairs_local repaired through the cascaded
-    # group; the launches' coefficient table chunks, ceil(reads / 64) each.
+    # cache misses, each a planner.compile span inside repair.plan) and
+    # their seconds, inside plan_seconds; stripes of repairs_local whose
+    # plan has a cascade step; the launches' coefficient table chunks,
+    # ceil(reads / 64) a launch on each device slice, counted by the
+    # engine (0 where the GF(2^8) kernel does not run, as on the CPU).
     plans_compiled: int = 0
     plan_compile_seconds: float = 0.0
     repairs_cascaded: int = 0
@@ -236,20 +254,6 @@ class FleetRepairReport:
         return self.local_reads / total if total else 1.0
 
 
-# repair_all's fields that the report carries as they are.
-_SPLIT_FIELDS = ("plan_seconds", "read_wait_seconds", "copy_in_seconds",
-                 "kernel_seconds", "copy_out_seconds", "drain_wait_seconds",
-                 "reader_busy_seconds", "reader_threads",
-                 "read_open_seconds", "read_copy_seconds",
-                 "read_sleep_seconds", "read_overshoot_seconds",
-                 "read_lock_seconds", "read_handoff_seconds",
-                 "read_cpu_seconds", "no_read_seconds",
-                 "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
-                 "staging_allocated", "plans_compiled",
-                 "plan_compile_seconds", "repairs_cascaded",
-                 "kernel_table_chunks")
-
-
 @dataclasses.dataclass(frozen=True)
 class DegradedReadReport:
     """What the degraded-read serving path did, fleet-wide.
@@ -317,12 +321,8 @@ def read_report(store, *, reset: bool = False) -> DegradedReadReport:
                else store.read_latency.snapshot())
     if reset:
         with store._tele_lock:
-            t.direct_reads = t.degraded_reads = t.coalesced_reads = 0
-            t.serve_decode_launches = 0
-            t.serve_local_decodes = t.serve_global_decodes = 0
-            t.serve_replans = 0
-            t.cache_hits = t.cache_misses = t.cache_invalidations = 0
-            t.served_bytes = 0
+            for name in SERVE_FIELDS:
+                setattr(t, name, 0)
     return DegradedReadReport(
         direct_reads=snap.direct_reads,
         degraded_reads=snap.degraded_reads,
@@ -357,38 +357,18 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
 
     ``options.pipeline`` (default: on when ``cfg.pipeline_window > 0``)
     overlaps each window's disk reads, device launch and write-back
-    through the async pipeline; the report's ``read/compute/write_seconds``
-    and ``overlap_seconds`` fields make the overlap observable, and
-    ``plan/read_wait/copy_in/kernel/copy_out/drain_wait_seconds``, the
-    readers' ``reader_busy_seconds`` over ``reader_threads`` (see
-    ``reader_occupancy``), ``no_read_seconds`` and ``h2d_bytes`` say where
-    the caller's time went, ``read_open_seconds``, ``read_copy_seconds``,
-    ``read_sleep_seconds``, ``read_overshoot_seconds``,
-    ``read_lock_seconds``, ``read_handoff_seconds`` and
-    ``read_cpu_seconds`` (with ``read_rest_seconds``, the busy time
-    outside the first five) where the readers' went, ``h2d_pinned_bytes``,
-    ``staging_reused`` and ``staging_allocated`` how the gathers were
-    staged, and
-    ``plans_compiled``/``plan_compile_seconds``, ``repairs_cascaded`` and
-    ``kernel_table_chunks`` what the planning compiled, which local
-    repairs took the cascaded group and how many coefficient table chunks
-    the kernel built (``StripeStore.repair_all``).
-    ``options.mesh_rules`` (or an ambient ``with_rules`` context)
-    device-shards each launch's stripe axis; the report's
-    ``devices``/``device_launches`` fields record the resulting per-device
-    launch counts. ``options.placement`` (a
-    ``repro_torch.dist.placement.PlacementMap``; defaults to the store's, else
-    one derived from the node->shard default for the mesh's stripe-axis
-    span) drives the per-shard gather and the local/remote read accounting
-    reported via ``local_reads``/``remote_reads``/
-    ``gather_bytes_per_shard``. ``options.schedule`` (default
+    through the async pipeline. ``options.mesh_rules`` (or an ambient
+    ``with_rules`` context) device-shards each launch's stripe axis.
+    ``options.placement`` (a ``repro_torch.dist.placement.PlacementMap``;
+    defaults to the store's, else one derived from the node->shard
+    default for the mesh's stripe-axis span) drives the per-shard gather
+    and the local/remote read accounting. ``options.schedule`` (default
     ``cfg.stripe_schedule``) picks the stripe -> device-shard assignment of
     each batched chunk: ``"locality"`` (``repro_torch.dist.schedule``) permutes
     chunks onto the shards owning most of their surviving blocks,
     bit-identically and never predicted worse than the contiguous
-    ``"none"`` default; the report's ``scheduled_local_read_fraction`` vs
-    ``contiguous_local_read_fraction`` (and ``schedule_uplift``) make the
-    difference observable. ``revive`` marks the nodes UP again after
+    ``"none"`` default. The report's fields say what each of these did
+    (:class:`FleetRepairReport`). ``revive`` marks the nodes UP again after
     the rebuild (blocks were re-materialized in place or onto spares).
 
     ``device`` names where the repair runs — the card unless the caller
@@ -410,38 +390,6 @@ def repair_failed_nodes(store, nodes: Iterable[int], *,
             store.revive_node(node)
     return FleetRepairReport(
         failed_nodes=nodes,
-        stripes_repaired=tele["stripes_repaired"],
-        patterns=tele["patterns"],
-        launches=tele["launches"],
-        devices=tele.get("devices", 1),
-        device_launches=tele.get("device_launches", tele["launches"]),
-        blocks_read=tele["blocks_read"],
-        bytes_read=tele["bytes_read"],
-        sim_seconds=tele["sim_seconds"],
-        wall_seconds=tele["wall_seconds"],
-        repairs_local=tele["repairs_local"],
-        repairs_global=tele["repairs_global"],
         plan_cache={k: after[k] - before[k] for k in after},
-        pipelined=tele.get("pipelined", False),
-        windows=tele.get("windows", 0),
-        replans=tele.get("replans", 0),
-        read_seconds=tele.get("read_seconds", 0.0),
-        compute_seconds=tele.get("compute_seconds", 0.0),
-        write_seconds=tele.get("write_seconds", 0.0),
-        overlap_seconds=tele.get("overlap_seconds", 0.0),
-        **{f: tele[f] for f in _SPLIT_FIELDS},
-        local_reads=tele.get("local_reads", 0),
-        remote_reads=tele.get("remote_reads", 0),
-        gather_bytes_per_shard=tele.get("gather_bytes_per_shard", {}),
-        schedule=tele.get("schedule", "none"),
-        scheduled_local_read_fraction=tele.get(
-            "scheduled_local_read_fraction", 1.0),
-        contiguous_local_read_fraction=tele.get(
-            "contiguous_local_read_fraction", 1.0),
-        destinations=tele.get("destinations", "in_place"),
-        blocks_relocated=tele.get("blocks_relocated", 0),
-        destination_copyset_fraction=tele.get(
-            "destination_copyset_fraction", 1.0),
-        effective_backend=tele.get("effective_backend",
-                                   store.cfg.backend),
-    )
+        **{f.name: tele[f.name] for f in dataclasses.fields(FleetRepairReport)
+           if f.name in tele})

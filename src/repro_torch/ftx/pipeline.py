@@ -62,18 +62,17 @@ window *i+1*'s ``(S, k, B)`` plaintext off a frozen host snapshot, window
 comes back in one copy, and the writer thread drains window *i-1*'s
 encoded stripes through ``StripeStreamWriter.write_window``.
 
-Every stage records wall spans; :class:`PipelineResult` aggregates them so
-overlap is *observable*: ``read+compute+write > wall`` is the pipeline
-working, and ``overlap_seconds`` quantifies it. The coordinator's own
-stages split that further: ``read_wait`` (blocked on a window's reads),
-``copy_in``, ``kernel`` and ``copy_out`` (the three parts of ``compute``)
-and ``drain_wait`` (blocked on the last write-backs), plus ``plan``
-(window creation; ``StripeStore.repair_all`` adds its own planning). When
-a ``torch.profiler`` records the thread that runs a repair, those spans
-also show on its trace under their names (``repair.plan``,
-``pipeline.read_wait``, ``pipeline.copy_in``, ``pipeline.kernel``,
-``pipeline.copy_out``, ``pipeline.drain_wait``), on the device timeline's
-clock; the profiler records no reader or writer thread.
+Every stage records wall spans through a :class:`StageClock`, so overlap
+is *observable*: ``read+compute+write > wall`` is the pipeline working. A
+repair's spans land in the store's ``Telemetry`` through the one clock
+``StripeStore.repair_all`` makes (the coordinator's own split of them is
+documented on ``repro_torch.ftx.fleet.FleetRepairReport``); an encode's
+land in its :class:`PipelineResult`. When a ``torch.profiler`` records
+the thread that runs a repair, the coordinator's spans also show on its
+trace under their names (``repair.plan``, ``pipeline.read_wait``,
+``pipeline.copy_in``, ``pipeline.kernel``, ``pipeline.copy_out``,
+``pipeline.drain_wait``), on the device timeline's clock; the profiler
+records no reader or writer thread.
 """
 from __future__ import annotations
 
@@ -91,7 +90,6 @@ import torch
 from repro_torch.dist.placement import assemble_shards, plan_gather
 from repro_torch.dist.schedule import schedule_group
 from repro_torch.dist.stripes import align_stripe_window, stripe_axis_span
-from repro_torch.kernels.gf256_matmul import gf256_matmul_batched
 
 # A hook receives (stage, window_index) at: "prefetch" (reads submitted),
 # "launch" (about to execute), "writeback" (write submitted), "replan"
@@ -137,13 +135,6 @@ def run_double_buffered(windows: Sequence, *, produce, consume,
         wait(drains)
     for f in drains:
         f.result()                       # surface writer-thread errors
-
-
-# Stages whose wall time a run sums into ``<stage>_seconds`` of its
-# PipelineResult (and a store into its Telemetry): the three overlapped
-# stages, then the coordinator's own split of them.
-STAGES = ("read", "compute", "write", "plan", "read_wait", "copy_in",
-          "kernel", "copy_out", "drain_wait")
 
 
 class StageClock:
@@ -304,29 +295,23 @@ def launch_stages(store, compiled, stacked, mesh_rules, clock: StageClock,
     a stack the mesh splits is scattered by the launch), ``kernel`` (the
     engine's own timing, after the device is synchronised) and
     ``copy_out``, the three inside ``compute``. The launched bytes count
-    into ``Telemetry.h2d_bytes``: each reached the card from the host once;
-    into ``h2d_pinned_bytes`` too when the stack was gathered in
-    page-locked memory (``pinned``). The coefficient table chunks that the
-    launch's GF(2^8) kernels built (the wrapper's count, 0 on another
-    backend or on the CPU) count into ``kernel_table_chunks``. When this
-    returns the device has
-    finished with the stack. Shared by the pipeline and the synchronous
-    path."""
+    into ``Telemetry.h2d_bytes`` (and ``h2d_pinned_bytes`` when the stack
+    was gathered in page-locked memory, ``pinned``), the engine's record
+    of its launch's table chunks into ``kernel_table_chunks``. When this
+    returns the device has finished with the stack. Shared by the pipeline
+    and the synchronous path."""
     engine = store.engine
     with clock.span("compute"):
         with clock.span("copy_in", "pipeline.copy_in"):
             stacked = engine.place(stacked, mesh_rules)
-        with store._tele_lock:
-            store.telemetry.h2d_bytes += math.prod(stacked.shape)
-            if pinned:
-                store.telemetry.h2d_pinned_bytes += math.prod(stacked.shape)
-        chunks = gf256_matmul_batched.table_chunks
         with clock.span("kernel", "pipeline.kernel") as kernel:
             out = engine.execute(compiled, stacked, mesh_rules)
             kernel.seconds = engine.last_exec_seconds
         with store._tele_lock:
-            store.telemetry.kernel_table_chunks += \
-                gf256_matmul_batched.table_chunks - chunks
+            store.telemetry.h2d_bytes += math.prod(stacked.shape)
+            if pinned:
+                store.telemetry.h2d_pinned_bytes += math.prod(stacked.shape)
+            store.telemetry.kernel_table_chunks += engine.last_table_chunks
         with clock.span("copy_out", "pipeline.copy_out"):
             return out.cpu().numpy()
 
@@ -360,7 +345,8 @@ class _Fetch:
 
 @dataclasses.dataclass
 class PipelineResult:
-    """Aggregate spans + launch accounting for one pipeline run."""
+    """Launch accounting for one pipeline run, and an encode run's spans
+    (a repair run's land in the store's telemetry)."""
     windows: int = 0
     launches: int = 0
     devices: int = 1
@@ -369,14 +355,6 @@ class PipelineResult:
     read_seconds: float = 0.0              # sum of per-window prefetch spans
     compute_seconds: float = 0.0           # sum of launch (+ host copy) spans
     write_seconds: float = 0.0             # sum of write-back spans
-    # The coordinator's split (STAGES): window creation, blocked on reads,
-    # the three parts of compute, blocked on the last write-backs.
-    plan_seconds: float = 0.0
-    read_wait_seconds: float = 0.0
-    copy_in_seconds: float = 0.0
-    kernel_seconds: float = 0.0
-    copy_out_seconds: float = 0.0
-    drain_wait_seconds: float = 0.0
     readers: int = 0                       # reader threads, all pools
     wall_seconds: float = 0.0
     # Stripe-scheduler predictions (repro_torch.dist.schedule): shard-local reads
@@ -435,6 +413,7 @@ class RepairPipeline:
         self.threads = max(1, int(threads or cfg.prefetch_threads))
         self.byte_budget = byte_budget
         self.hook = o.pipeline_hook or (lambda stage, index: None)
+        self._res = PipelineResult()
         self._span_lock = threading.Lock()
         # Staging buffers of the run's prefetches, from acquire to release,
         # and the size each asks for: the run's widest window, so that one
@@ -542,7 +521,7 @@ class RepairPipeline:
                             self.mesh_rules, clock,
                             pinned=fetch.staging.pinned)
         self._release(fetch)
-        res = clock.target
+        res = self._res
         res.launches += 1
         res.devices = max(res.devices, engine.last_span)
         res.device_launches += engine.last_span
@@ -568,7 +547,7 @@ class RepairPipeline:
         for _ in range(1 + len(store.nodes)):
             if not pending:
                 return
-            clock.target.replans += 1
+            self._res.replans += 1
             self.hook("replan", win.index)
             retry: list[int] = []
             groups: dict[frozenset[int], list[int]] = {}
@@ -593,17 +572,17 @@ class RepairPipeline:
         raise IOError(f"stripes {pending}: nodes kept failing during re-plan")
 
     # ---------------------------------------------------------------- run
-    def run(self, work: Sequence[tuple[list[int], frozenset[int], object]]
-            ) -> PipelineResult:
-        """Repair ``[(sids, down, compiled), ...]`` pattern groups.
+    def run(self, work: Sequence[tuple[list[int], frozenset[int], object]],
+            clock: StageClock) -> PipelineResult:
+        """Repair ``[(sids, down, compiled), ...]`` pattern groups, the
+        stage spans into ``clock`` (the repair's, made on this thread).
 
         The double buffer: wait on window *i*'s prefetch, immediately
         submit window *i+1*'s, then launch *i* and hand its write-back to
         the writer thread — so at steady state reads, compute and writes
         for three consecutive windows run concurrently.
         """
-        res = PipelineResult()
-        clock = StageClock(res, self._span_lock)
+        res = self._res
         with clock.span("plan", "repair.plan"):
             windows = self._windows(work, res)
         res.windows = len(windows)

@@ -48,8 +48,7 @@ from repro_torch.kernels.ops import effective_backend as _eff
 from repro_torch.serve.telemetry import LatencyRecorder
 
 from .options import RepairOptions, ServeOptions
-from .pipeline import (STAGES, STAGING, StageClock, acquire_staging,
-                       launch_stages)
+from .pipeline import STAGING, StageClock, acquire_staging, launch_stages
 
 # Shared all-defaults ServeOptions: every read without explicit options
 # resolves its knobs through this one frozen instance.
@@ -59,10 +58,6 @@ _DEFAULT_SERVE = ServeOptions()
 class NodeState(enum.Enum):
     UP = "up"
     DOWN = "down"
-
-
-# The parts of a block read's own time (Telemetry.read_<part>_seconds).
-READ_PARTS = ("open", "copy", "sleep", "overshoot", "lock", "handoff", "cpu")
 
 
 # Cap on the gathered (S, |reads|, B) host stack per batched repair launch;
@@ -195,50 +190,38 @@ class ObjectMeta:
 
 @dataclasses.dataclass
 class Telemetry:
+    """The store's running counters. Every field outside
+    :data:`SERVE_FIELDS` is a repair counter: ``repair_all`` returns each
+    one's change over the call (:meth:`since`), and
+    :class:`repro_torch.ftx.fleet.FleetRepairReport` documents it under
+    the same name. Read path threads, the pipeline's reader and writer
+    threads and the coordinator add to them under the store's
+    ``_tele_lock``."""
     blocks_read: int = 0
     bytes_read: int = 0
     repairs_local: int = 0
     repairs_global: int = 0
     sim_seconds: float = 0.0
-    # Wall-clock stage spans of repair work (read gather / device compute /
-    # write-back). Under the pipeline these overlap, so their sum exceeding
-    # the repair's wall time is the overlap being won.
+    # Stage spans (StageClock's targets): under the pipeline these overlap.
     read_seconds: float = 0.0
     compute_seconds: float = 0.0
     write_seconds: float = 0.0
-    # The coordinator's split of them (repro_torch.ftx.pipeline.STAGES):
-    # planning and window creation, blocked on a window's reads, the copy
-    # to the device, the kernel, the copy back (the three make compute),
-    # blocked on the last write-backs.
     plan_seconds: float = 0.0
     read_wait_seconds: float = 0.0
     copy_in_seconds: float = 0.0
     kernel_seconds: float = 0.0
     copy_out_seconds: float = 0.0
     drain_wait_seconds: float = 0.0
-    # Block reads: wall time summed over reads, each from its file read to
-    # the end of its link sleep; wall time with no read in flight (closed
-    # up to the last read's start or end, and by repair_all at its ends);
-    # bytes of the repair launches' stacks moved from the host to the card,
-    # and of those the bytes copied from page-locked memory.
     reader_busy_seconds: float = 0.0
     no_read_seconds: float = 0.0
     h2d_bytes: int = 0
     h2d_pinned_bytes: int = 0
-    # Repair windows whose gather buffer came from the staging pool, and
-    # those that needed a new one (repro_torch.ftx.pipeline.STAGING).
     staging_reused: int = 0
     staging_allocated: int = 0
-    # Block reads' own time in parts, summed over reads: opening, sizing
-    # and closing the file on the slot path; the bytes into the slot (the
-    # whole np.fromfile call on the other paths); the link sleep asked for,
-    # and the sleep's wall time beyond it; waits to enter the read's two
-    # _tele_lock sections; on a reader pool, from when the read could be
-    # taken (submitted, and the thread's previous read ended) to its
-    # start. And the reader pools' threads' CPU time, from each thread's
-    # start to the pool's end (its reads and the hand-offs between them;
-    # RepairPipeline reads their CPU clocks, since a CPU clock read on
-    # every read costs the read far more than its own time on some hosts).
+    # A block read's own time in parts. The reader pools' CPU time is read
+    # by RepairPipeline per pool thread, at its start and at the pool's
+    # end: a CPU clock read on every read costs the read far more than its
+    # own time on some hosts.
     read_open_seconds: float = 0.0
     read_copy_seconds: float = 0.0
     read_sleep_seconds: float = 0.0
@@ -246,27 +229,16 @@ class Telemetry:
     read_lock_seconds: float = 0.0
     read_handoff_seconds: float = 0.0
     read_cpu_seconds: float = 0.0
-    # Multi-node plans that repair_all's planning compiled (planner cache
-    # misses) and the seconds they took (inside plan_seconds); local
-    # repairs whose plan went through the cascaded group (counted in
-    # repairs_local too); the coefficient table chunks of the repair
-    # launches' GF(2^8) kernel, ceil(reads / 64) a launch
-    # (repro_torch.kernels.gf256_matmul.TABLE_CHUNK_ROWS).
     plans_compiled: int = 0
     plan_compile_seconds: float = 0.0
     repairs_cascaded: int = 0
     kernel_table_chunks: int = 0
-    # Locality accounting (PlacementMap): reads served from the reading
-    # shard's own nodes vs. cross-shard fetches, and how many gather bytes
-    # each shard pulled from disk during repair gathers.
     local_reads: int = 0
     remote_reads: int = 0
     gather_bytes_per_shard: dict = dataclasses.field(default_factory=dict)
-    # Rebuild-destination accounting: blocks whose repair write-back landed
-    # on a topology-chosen surviving node instead of the failed block's
-    # original address (repro_torch.dist.topology.pick_destinations).
     blocks_relocated: int = 0
-    # Degraded-read serving path (read/read_range): requests served straight
+    # Degraded-read serving path (read/read_range; SERVE_FIELDS, reported
+    # by repro_torch.ftx.fleet.read_report): requests served straight
     # from live blocks vs. reconstructed inline; how many of the degraded
     # ones piggybacked on another request's in-flight decode (coalescing) or
     # on the hot-block cache; how many decode launches actually reached the
@@ -289,30 +261,35 @@ class Telemetry:
         return snap
 
     def reset(self) -> "Telemetry":
-        snap = self.copy()
-        self.blocks_read = self.bytes_read = 0
-        self.repairs_local = self.repairs_global = 0
-        self.sim_seconds = 0.0
-        for stage in STAGES:
-            setattr(self, f"{stage}_seconds", 0.0)
-        self.reader_busy_seconds = self.no_read_seconds = 0.0
-        self.h2d_bytes = self.h2d_pinned_bytes = 0
-        self.staging_reused = self.staging_allocated = 0
-        for part in READ_PARTS:
-            setattr(self, f"read_{part}_seconds", 0.0)
-        self.plans_compiled = self.repairs_cascaded = 0
-        self.plan_compile_seconds = 0.0
-        self.kernel_table_chunks = 0
-        self.local_reads = self.remote_reads = 0
-        self.gather_bytes_per_shard = {}
-        self.blocks_relocated = 0
-        self.direct_reads = self.degraded_reads = self.coalesced_reads = 0
-        self.serve_decode_launches = 0
-        self.serve_local_decodes = self.serve_global_decodes = 0
-        self.serve_replans = 0
-        self.cache_hits = self.cache_misses = self.cache_invalidations = 0
-        self.served_bytes = 0
+        """Set every field back to its default; returns the snapshot."""
+        snap, fresh = self.copy(), Telemetry()
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, getattr(fresh, f.name))
         return snap
+
+    def since(self, before: "Telemetry") -> dict:
+        """The change of every repair counter (each field outside
+        :data:`SERVE_FIELDS`) from ``before``; ``gather_bytes_per_shard``
+        keeps the shards whose bytes changed."""
+        out = {}
+        for f in dataclasses.fields(self):
+            if f.name in SERVE_FIELDS:
+                continue
+            now, was = getattr(self, f.name), getattr(before, f.name)
+            if isinstance(now, dict):
+                out[f.name] = {s: v - was.get(s, 0) for s, v in now.items()
+                               if v != was.get(s, 0)}
+            else:
+                out[f.name] = now - was
+        return out
+
+
+# The degraded-read serving path's counters, the fields of Telemetry that
+# no repair reports.
+SERVE_FIELDS = ("direct_reads", "degraded_reads", "coalesced_reads",
+                "serve_decode_launches", "serve_local_decodes",
+                "serve_global_decodes", "serve_replans", "cache_hits",
+                "cache_misses", "cache_invalidations", "served_bytes")
 
 
 class _InflightDecode:
@@ -990,45 +967,20 @@ class StripeStore:
         (see ``repro_torch.ftx.pipeline.PipelineHook``) used by the failure-
         injection tests.
 
+        The returned counters (each described on the
+        :class:`repro_torch.ftx.fleet.FleetRepairReport` field of the same
+        name) are the change of every repair field of the store's
+        :class:`Telemetry` over the call (:meth:`Telemetry.since`), plus
+        those the call counts itself: launches, devices, windows, reader
+        threads, the scheduler's predictions and destinations. Stage spans
+        land in the store's telemetry through one :class:`StageClock` on
+        both batched paths; when a ``torch.profiler`` records the calling
+        thread they are also spans of its trace
+        (``repro_torch.ftx.pipeline``).
+
         ``mesh_rules`` (or an ambient ``with_rules`` context) shards each
         launch's stripe axis over the mesh's data axes: one launch per
-        device slice of each pattern chunk. Telemetry reports ``devices``
-        (widest device span seen) and ``device_launches`` (total
-        per-device kernel executions across all launches).
-        ``read/compute/write_seconds``
-        report per-stage wall spans; ``overlap_seconds`` is the stage time
-        the pipeline hid (0 on the synchronous paths). The calling
-        thread's own split of them: ``plan_seconds`` (grouping, plans,
-        destinations and window creation), ``read_wait_seconds`` (blocked
-        on a window's reads), ``copy_in_seconds``, ``kernel_seconds`` and
-        ``copy_out_seconds`` (the three parts of ``compute_seconds``; the
-        kernel's is the engine's own timing) and ``drain_wait_seconds``
-        (blocked on the last write-backs); under a ``torch.profiler`` they
-        are also spans of its trace (``repro_torch.ftx.pipeline``). The
-        readers: ``reader_busy_seconds`` (wall time summed over block
-        reads, link sleeps included) over ``reader_threads`` (the pools'
-        width; 1 on the synchronous paths) gives their occupancy, and
-        the reads' own time splits into ``read_open_seconds`` (opening,
-        sizing and closing the block file), ``read_copy_seconds`` (the
-        bytes into the slot), ``read_sleep_seconds`` (the link sleep asked
-        for), ``read_overshoot_seconds`` (the sleep's wall time beyond
-        it), ``read_lock_seconds`` (waits on the store's telemetry lock),
-        ``read_handoff_seconds`` (the reader pools' wait from a read's
-        being ready to its start) and ``read_cpu_seconds`` (the reader
-        pools' threads' CPU time, their reads and hand-offs); the last two
-        are 0 on the synchronous paths. ``no_read_seconds`` is the call's
-        wall time with no read in flight, and ``h2d_bytes`` the bytes its
-        launches took from the host to the device, ``h2d_pinned_bytes``
-        those of them copied from page-locked memory. Each window gathers into a staging buffer from
-        the process's pool (``repro_torch.ftx.pipeline.STAGING``):
-        ``staging_reused`` windows found one there, ``staging_allocated``
-        needed a new one. ``plans_compiled`` counts the multi-node plans
-        the planning compiled (cache misses, each a ``planner.compile``
-        span inside ``repair.plan``) and ``plan_compile_seconds`` sums
-        them; ``repairs_cascaded`` counts the stripes of
-        ``repairs_local`` whose plan has a cascade step, and
-        ``kernel_table_chunks`` the GF(2^8) kernel's coefficient table
-        chunks over the launches (``ceil(reads / 64)`` each).
+        device slice of each pattern chunk.
 
         ``placement`` (a ``repro_torch.dist.placement.PlacementMap``; defaults to
         the store's, else one derived from the node->shard default for the
@@ -1036,8 +988,7 @@ class StripeStore:
         shard's slice of the batched ``(S, |reads|, B)`` input is filled
         into its own host buffer and copied directly onto that shard's
         device — no single-host stack exists — and every read is charged
-        local or remote against the placement's locality cost model
-        (``local_reads``/``remote_reads``/``gather_bytes_per_shard``).
+        local or remote against the placement's locality cost model.
 
         ``schedule`` (default ``cfg.stripe_schedule``) picks the stripe ->
         device-shard assignment of each batched chunk
@@ -1051,10 +1002,7 @@ class StripeStore:
         fraction never drops); ``"none"`` keeps the contiguous default.
         Bit-identical every way: write-back is keyed by stripe id, so a
         permutation changes which shard reads which bytes, never the
-        bytes. The telemetry reports both predictions
-        (``scheduled_local_read_fraction`` vs
-        ``contiguous_local_read_fraction``) so the scheduler's uplift is
-        observable in every repair.
+        bytes.
 
         ``destinations`` (default ``cfg.rebuild_destinations``) picks
         where rebuilt blocks are persisted: ``"in_place"`` writes each
@@ -1066,10 +1014,7 @@ class StripeStore:
         placement policy's invariants (copyset width for ``spread``,
         per-domain dispersion for ``round_robin``) so follow-up repairs
         stay local. ``spare_of`` (node-level spares) takes precedence for
-        blocks whose node it maps. The telemetry reports
-        ``blocks_relocated`` and ``destination_copyset_fraction`` (how
-        many re-homed blocks landed in a domain the stripe already
-        occupied).
+        blocks whose node it maps.
         """
         o = options if options is not None else RepairOptions()
         batched, mesh_rules = o.batched, o.mesh_rules
@@ -1187,7 +1132,7 @@ class StripeStore:
                     mesh_rules=mr, window=window,
                     pipeline_hook=pipeline_hook, placement=placement,
                     schedule=schedule),
-            ).run(work)
+            ).run(work, clock)
             launches += res.launches
             devices = max(devices, res.devices)
             device_launches += res.device_launches
@@ -1197,8 +1142,6 @@ class StripeStore:
             sched_local += res.scheduled_local
             contig_local += res.contiguous_local
             sched_total += res.schedule_total
-            for stage in STAGES:
-                clock.add(stage, getattr(res, f"{stage}_seconds"))
         else:
             for sids, down, compiled in work:
                 # Chunk by stripe count AND gathered-stack bytes, so wide
@@ -1224,22 +1167,12 @@ class StripeStore:
         t_end = time.perf_counter()
         with self._tele_lock:
             self._close_no_read(t_end)
-            t = self.telemetry.copy()
+            spent = self.telemetry.since(before)
         wall = t_end - t0
-        gather_shards = {
-            s: t.gather_bytes_per_shard.get(s, 0)
-            - before.gather_bytes_per_shard.get(s, 0)
-            for s in t.gather_bytes_per_shard}
-        gather_shards = {s: v for s, v in gather_shards.items() if v}
-        spent = {f"{stage}_seconds": getattr(t, f"{stage}_seconds")
-                 - getattr(before, f"{stage}_seconds") for stage in STAGES}
         stage_sum = (spent["read_seconds"] + spent["compute_seconds"]
                      + spent["write_seconds"])
-        read_parts = {f"read_{part}_seconds":
-                      getattr(t, f"read_{part}_seconds")
-                      - getattr(before, f"read_{part}_seconds")
-                      for part in READ_PARTS}
         return {
+            **spent,
             "stripes_repaired": sum(len(sids) for sids in affected.values()),
             "patterns": len(affected),
             # The formulation the repair launches actually ran (see
@@ -1257,36 +1190,11 @@ class StripeStore:
             "pipelined": bool(use_pipeline and work),
             "windows": windows,
             "replans": replans,
-            "blocks_read": t.blocks_read - before.blocks_read,
-            "bytes_read": t.bytes_read - before.bytes_read,
-            "sim_seconds": t.sim_seconds - before.sim_seconds,
             "wall_seconds": wall,
-            **spent,
             "overlap_seconds": max(0.0, stage_sum - wall),
-            "reader_busy_seconds":
-                t.reader_busy_seconds - before.reader_busy_seconds,
             "reader_threads": readers,
-            **read_parts,
-            "no_read_seconds": t.no_read_seconds - before.no_read_seconds,
-            "h2d_bytes": t.h2d_bytes - before.h2d_bytes,
-            "h2d_pinned_bytes": t.h2d_pinned_bytes - before.h2d_pinned_bytes,
-            "staging_reused": t.staging_reused - before.staging_reused,
-            "staging_allocated":
-                t.staging_allocated - before.staging_allocated,
-            "plans_compiled": t.plans_compiled - before.plans_compiled,
-            "plan_compile_seconds":
-                t.plan_compile_seconds - before.plan_compile_seconds,
-            "repairs_cascaded": t.repairs_cascaded - before.repairs_cascaded,
-            "kernel_table_chunks":
-                t.kernel_table_chunks - before.kernel_table_chunks,
-            "repairs_local": t.repairs_local - before.repairs_local,
-            "repairs_global": t.repairs_global - before.repairs_global,
-            "local_reads": t.local_reads - before.local_reads,
-            "remote_reads": t.remote_reads - before.remote_reads,
-            "gather_bytes_per_shard": gather_shards,
             "schedule": schedule if batched else "none",
             "destinations": destinations,
-            "blocks_relocated": t.blocks_relocated - before.blocks_relocated,
             "destination_copyset_fraction":
                 dest_copyset / dest_total if dest_total else 1.0,
             "scheduled_local_reads": sched_local,

@@ -14,10 +14,10 @@ A tensor on the CPU runs the plain PyTorch version
 (``repro_torch.kernels.ref``); a CUDA tensor launches the kernel or
 raises. Each wrapper counts its launches in a plain integer attribute
 (``gf256_matmul.launches``, ``gf256_matmul_batched.launches``), so a run
-can show that its main path went through the kernel, and beside them the
-coefficient table chunks its launches built (``table_chunks``:
-``ceil(k / TABLE_CHUNK_ROWS)`` a launch; a k past one chunk builds the
-next chunk's tables once the first chunk's rows are done).
+can show that its main path went through the kernel. A launch over k
+input rows builds :func:`table_chunks` ``(k)`` coefficient table chunks
+(a k past one chunk builds the next chunk's tables once the first
+chunk's rows are done).
 """
 from __future__ import annotations
 
@@ -118,11 +118,15 @@ def _launch(coef: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _count(wrapper, k: int) -> None:
-    """One launch of ``wrapper`` over ``k`` input rows, counted."""
+def table_chunks(k: int) -> int:
+    """Coefficient table chunks one launch over ``k`` input rows builds."""
+    return -(-k // TABLE_CHUNK_ROWS)
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``, counted."""
     with _COUNT_LOCK:
         wrapper.launches += 1
-        wrapper.table_chunks += -(-k // TABLE_CHUNK_ROWS)
 
 
 def gf256_matmul_batched(coef: torch.Tensor,
@@ -137,7 +141,7 @@ def gf256_matmul_batched(coef: torch.Tensor,
         return ref_lib.gf256_matmul_batched_ref(coef, data)
     out = _launch(coef, data)
     if out.numel():
-        _count(gf256_matmul_batched, coef.shape[1])
+        _count(gf256_matmul_batched)
     return out
 
 
@@ -149,9 +153,9 @@ def gf256_matmul(coef: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         return ref_lib.gf256_matmul_ref(coef, data)
     out = _launch(coef, data[None])[0]
     if out.numel():
-        _count(gf256_matmul, coef.shape[1])
+        _count(gf256_matmul)
     return out
 
 
-gf256_matmul_batched.launches = gf256_matmul_batched.table_chunks = 0
-gf256_matmul.launches = gf256_matmul.table_chunks = 0
+gf256_matmul_batched.launches = 0
+gf256_matmul.launches = 0

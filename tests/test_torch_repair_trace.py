@@ -5,6 +5,7 @@ parts of a block read's own time, the bytes sent to the device, and the
 same spans on a ``torch.profiler`` trace when, and only when, a profiler
 records the calling thread."""
 import collections
+import dataclasses
 import threading
 
 import numpy as np
@@ -12,8 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.ftx import (RepairOptions, StoreConfig,  # noqa: E402
-                             StripeStore, repair_failed_nodes)
+from repro_torch.ftx import (FleetRepairReport, RepairOptions,  # noqa: E402
+                             StoreConfig, StripeStore, repair_failed_nodes)
+from repro_torch.ftx.stripestore import SERVE_FIELDS, Telemetry  # noqa: E402
 
 SPLIT = ("plan", "read_wait", "copy_in", "kernel", "copy_out", "drain_wait")
 NAMES = {"repair.plan": "plan", "pipeline.read_wait": "read_wait",
@@ -145,6 +147,27 @@ def test_store_telemetry_sums_the_split_over_repairs(tmp_path):
     assert tele.h2d_bytes == 0 and tele.reader_busy_seconds == 0
     assert all(getattr(tele, f"{s}_seconds") == 0 for s in SPLIT)
     assert all(getattr(tele, field) == 0 for field in reads)
+    # A repair's result carries every repair field of the telemetry and
+    # every field of the report; a degraded read moves the serving
+    # fields; reset() then returns every field to its default.
+    store.fail_node(0)
+    got = store.repair_all()
+    store.revive_node(0)
+    fields = [f.name for f in dataclasses.fields(Telemetry)]
+    assert {f for f in fields if f not in SERVE_FIELDS} <= set(got)
+    assert not set(SERVE_FIELDS) & set(got)
+    assert {f.name for f in dataclasses.fields(FleetRepairReport)} \
+        - {"failed_nodes", "plan_cache"} <= set(got)
+    sid = next(iter(store.stripes))
+    store.fail_node(store.stripes[sid].node_of_block[0])
+    store.read(sid, 0)
+    assert tele.degraded_reads == 1 and tele.served_bytes > 0
+    moved = [f for f in fields
+             if getattr(tele, f) != getattr(Telemetry(), f)]
+    assert len(moved) > len(fields) // 2
+    tele.reset()
+    for f in dataclasses.fields(Telemetry):
+        assert getattr(tele, f.name) == getattr(Telemetry(), f.name), f.name
 
 
 def _span_sums(prof):

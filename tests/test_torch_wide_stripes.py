@@ -142,15 +142,13 @@ def test_p8_adjacent_pair_plans_equal_the_reference(scheme):
 
 
 def _launches_with_table_chunks(monkeypatch):
-    """The batched GF(2^8) wrapper on the CPU counting as on the card: its
-    plain product, each call counted through the wrapper's own counter."""
-    from repro_torch.kernels import ops, ref
+    """The engine on the CPU recording its launches' table chunks as on
+    the card: a "gf" launch reports that it ran the GF(2^8) kernel (the
+    plain product still runs)."""
+    from repro_torch.core import engine
 
-    def counted(coef, data):
-        gm._count(gm.gf256_matmul_batched, coef.shape[1])
-        return ref.gf256_matmul_batched_ref(coef, data)
-
-    monkeypatch.setattr(ops, "gf256_matmul_batched", counted)
+    monkeypatch.setattr(engine, "effective_backend",
+                        lambda backend, device: backend)
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
@@ -208,9 +206,9 @@ def test_p8_report_counts_follow_the_plans_and_launches(scheme, tmp_path,
 
 
 def test_table_chunks_count_ceil_k_over_64():
-    before = (gm.gf256_matmul.launches, gm.gf256_matmul.table_chunks)
-    for k in (1, 64, 65, 96, 128, 129):
-        gm._count(gm.gf256_matmul, k)
-    assert (gm.gf256_matmul.launches - before[0],
-            gm.gf256_matmul.table_chunks - before[1]) == \
-        (6, 1 + 1 + 2 + 2 + 2 + 3)
+    ks = (1, 64, 65, 96, 128, 129)
+    assert [gm.table_chunks(k) for k in ks] == [1, 1, 2, 2, 2, 3]
+    before = gm.gf256_matmul.launches
+    for _ in ks:
+        gm._count(gm.gf256_matmul)
+    assert gm.gf256_matmul.launches - before == len(ks)
