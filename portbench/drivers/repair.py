@@ -16,6 +16,7 @@ overwritten.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -104,14 +105,26 @@ class Files:
         return blocks
 
 
+# Properties of the program's report that the readers see beside its
+# fields.
+REPORT_PROPERTIES = ("overlap_ratio", "read_rest_seconds")
+
+
 def report_fields(rep) -> dict:
-    keys = ("stripes_repaired", "patterns", "launches", "windows",
-            "blocks_read", "wall_seconds", "read_seconds",
-            "compute_seconds", "write_seconds", "overlap_seconds",
-            "repairs_local", "repairs_global")
-    out = {k: getattr(rep, k) for k in keys if hasattr(rep, k)}
-    if hasattr(rep, "overlap_ratio"):
-        out["overlap_ratio"] = rep.overlap_ratio
+    """Every field of the repair's report that holds a number, a flag or a
+    name (its dataclass fields; the public attributes of another object),
+    and the properties above: a counter the program adds reaches the
+    readers with no edit here."""
+    if dataclasses.is_dataclass(rep):
+        names = [f.name for f in dataclasses.fields(rep)]
+        names += [n for n in REPORT_PROPERTIES if hasattr(rep, n)]
+    else:
+        names = [n for n in dir(rep) if not n.startswith("_")]
+    out = {}
+    for name in names:
+        value = getattr(rep, name)
+        if isinstance(value, (int, float, bool, str)):
+            out[name] = value
     return out
 
 

@@ -1,13 +1,11 @@
 """Share of the pipeline's stage time that overlapping hid, over the
 window's repairs (the program's ``overlap_seconds`` over the sum of its
 read, compute and write spans)."""
-from portbench.readers import repair_reports
+from portbench.readers import ratio_of_sums
 
 
 def read(record):
-    reps = repair_reports(record)
-    busy = sum(r["read_seconds"] + r["compute_seconds"] + r["write_seconds"]
-               for r in reps)
-    if not busy:
-        return None
-    return sum(r["overlap_seconds"] for r in reps) / busy
+    return ratio_of_sums(
+        record, lambda r: r["overlap_seconds"],
+        lambda r: r["read_seconds"] + r["compute_seconds"]
+        + r["write_seconds"])

@@ -11,11 +11,40 @@ def repair_reports(record) -> list:
     return [r["report"] for r in record["repairs"] if r["report"]]
 
 
+def reports_with(record, *fields) -> list:
+    """The window's reports that carry every one of ``fields``."""
+    return [r for r in repair_reports(record)
+            if all(f in r for f in fields)]
+
+
 def per_repair_ms(record, field: str):
-    reps = repair_reports(record)
+    reps = reports_with(record, field)
     if not reps:
         return None
     return 1e3 * sum(r[field] for r in reps) / len(reps)
+
+
+def per_read_ms(record, field: str):
+    """``field`` summed over the window's repairs, in ms, over the blocks
+    they read."""
+    reps = reports_with(record, field, "blocks_read")
+    reads = sum(r["blocks_read"] for r in reps)
+    if not reads:
+        return None
+    return 1e3 * sum(r[field] for r in reps) / reads
+
+
+def ratio_of_sums(record, part, whole):
+    """Sum over the window's repairs of ``part(report)`` over that of
+    ``whole(report)``, each a function of one report; ``None`` where the
+    reports lack a field either reads or the whole sums to 0."""
+    try:
+        reps = repair_reports(record)
+        den = sum(whole(r) for r in reps)
+        num = sum(part(r) for r in reps)
+    except KeyError:
+        return None
+    return num / den if den else None
 
 
 def roofline_percent(record, kind: str):

@@ -23,7 +23,7 @@ SEED = 2 ** 31 + 17
 WIDE = [(48, 4, 3), (72, 4, 4), (96, 5, 4)]
 
 
-@pytest.mark.parametrize("scheme", ["cp-azure", "cp-uniform"])
+@pytest.mark.parametrize("scheme", lrc.SCHEMES)
 @pytest.mark.parametrize("krp", WIDE, ids=str)
 def test_wide_generator_is_the_ports(scheme, krp):
     from repro_torch.core.schemes import make_scheme

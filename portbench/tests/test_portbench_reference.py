@@ -75,7 +75,7 @@ def test_apply_matches_scalar_products(xor_only):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("scheme", ["cp-azure", "cp-uniform"])
+@pytest.mark.parametrize("scheme", lrc.SCHEMES)
 @pytest.mark.parametrize("krp", GEOMETRIES, ids=str)
 def test_generator_is_the_ports(scheme, krp):
     from repro_torch.core.schemes import make_scheme
@@ -94,11 +94,22 @@ def test_placement_is_the_ports():
                                 sid, 28)
 
 
-@pytest.mark.parametrize("scheme", ["cp-azure", "cp-uniform"])
+def _decode_coefficients(gen, lost, survivors):
+    """The coefficients the reference's decode puts on each survivor:
+    its product over one-hot blocks, survivor b's a byte 1 at column b."""
+    n = gen.shape[0]
+    probe = {b: torch.eye(n, dtype=torch.uint8)[b][None] for b in survivors}
+    return lrc.decode(gen, lost, probe)[0].numpy()
+
+
+@pytest.mark.parametrize("scheme", lrc.SCHEMES)
 def test_sealed_bytes_and_decode(scheme):
     """A small port store seals what the reference encodes; the
     reference decodes every pattern of two losses exactly, and its GF(2)
-    control does not."""
+    control does not wherever a coefficient of the decode is neither 0
+    nor 1: at every pattern of the CP constructions, and at least at a
+    lost global of the baselines, whose XOR local parities a GF(2) decode
+    rebuilds exactly."""
     from repro_torch.ftx import StoreConfig, StripeStore
 
     k, r, p, size = 24, 2, 2, 256
@@ -118,10 +129,16 @@ def test_sealed_bytes_and_decode(scheme):
             for sid in range(3)])
     assert torch.equal(sealed[:, :k], data)
     assert torch.equal(sealed[:, k:], lrc.encode(gen, data))
+    wrong_in_gf2 = []
     for lost in ([0], [k], [k + p + r - 1], [3, 4], [0, 12], [k, k + 1],
                  [5, k + p]):
         survivors = {b: sealed[:, b] for b in range(k + r + p)
                      if b not in lost}
         assert torch.equal(lrc.decode(gen, lost, survivors), sealed[:, lost])
-        assert not torch.equal(lrc.decode(gen, lost, survivors,
-                                          xor_only=True), sealed[:, lost])
+        binary = (_decode_coefficients(gen, lost, survivors) <= 1).all()
+        xor = lrc.decode(gen, lost, survivors, xor_only=True)
+        assert torch.equal(xor, sealed[:, lost]) == binary, lost
+        wrong_in_gf2.append(not binary)
+    if scheme.startswith("cp-"):
+        assert all(wrong_in_gf2)
+    assert wrong_in_gf2[2]                  # G_r
