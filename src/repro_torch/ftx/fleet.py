@@ -173,12 +173,15 @@ class FleetRepairReport:
     # Planning and the GF(2^8) kernel: multi-node plans compiled (planner
     # cache misses, each a planner.compile span inside repair.plan) and
     # their seconds, inside plan_seconds; stripes of repairs_local whose
-    # plan has a cascade step; the launches' coefficient table chunks,
+    # plan has a cascade step; the surviving blocks read for the stripes
+    # of repairs_global (their plans' reads, a stripe each, out of
+    # blocks_read); the launches' coefficient table chunks,
     # ceil(reads / 64) a launch on each device slice, counted by the
     # engine (0 where the GF(2^8) kernel does not run, as on the CPU).
     plans_compiled: int = 0
     plan_compile_seconds: float = 0.0
     repairs_cascaded: int = 0
+    reads_global: int = 0
     kernel_table_chunks: int = 0
     # Locality accounting (repro_torch.dist.placement.PlacementMap): repair reads
     # served shard-locally vs. across shards, and the gather bytes each

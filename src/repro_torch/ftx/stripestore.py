@@ -232,6 +232,7 @@ class Telemetry:
     plans_compiled: int = 0
     plan_compile_seconds: float = 0.0
     repairs_cascaded: int = 0
+    reads_global: int = 0
     kernel_table_chunks: int = 0
     local_reads: int = 0
     remote_reads: int = 0
@@ -1305,6 +1306,7 @@ class StripeStore:
                     self.telemetry.repairs_cascaded += len(sids)
             else:
                 self.telemetry.repairs_global += len(sids)
+                self.telemetry.reads_global += len(plan.reads) * len(sids)
             self.telemetry.blocks_relocated += relocated
 
     def _execute_multi(self, sid: int, plan, down: frozenset[int],

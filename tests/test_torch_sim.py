@@ -314,7 +314,7 @@ PORT_SPLIT = {"plan_seconds", "read_wait_seconds", "copy_in_seconds",
               "reader_busy_seconds", "reader_threads", "no_read_seconds",
               "h2d_bytes", "h2d_pinned_bytes", "staging_reused",
               "staging_allocated", "plans_compiled", "plan_compile_seconds",
-              "repairs_cascaded", "kernel_table_chunks",
+              "repairs_cascaded", "reads_global", "kernel_table_chunks",
               "read_open_seconds", "read_copy_seconds", "read_sleep_seconds",
               "read_overshoot_seconds", "read_lock_seconds",
               "read_handoff_seconds", "read_cpu_seconds"}

@@ -12,8 +12,9 @@ port's normal repair path on the CPU.
 * The port's plan for every one of the 105 adjacent pairs equals the
   JAX package's: reads, coefficients and steps.
 * The report's counters of the planning and of the GF(2^8) kernel
-  (``plans_compiled``, ``repairs_cascaded``, ``kernel_table_chunks``)
-  equal counts taken from the plans and the launch shapes.
+  (``plans_compiled``, ``repairs_cascaded``, ``reads_global``,
+  ``kernel_table_chunks``) equal counts taken from the plans and the
+  launch shapes.
 """
 import math
 import sys
@@ -169,7 +170,7 @@ def test_p8_report_counts_follow_the_plans_and_launches(scheme, tmp_path,
                              if n in nodes)
             groups.setdefault(down, []).append(sid)
         plans = {down: planner.multi_plan(down) for down in groups}
-        local = cascaded = glob = reads = launches = chunks = 0
+        local = cascaded = glob = glob_reads = reads = launches = chunks = 0
         for down, sids in groups.items():
             plan = plans[down]
             if plan.meta.all_local:
@@ -178,6 +179,7 @@ def test_p8_report_counts_follow_the_plans_and_launches(scheme, tmp_path,
                     m == "cascade" for _, m in plan.meta.steps)
             else:
                 glob += len(sids)
+                glob_reads += len(sids) * len(plan.reads)
             reads += len(sids) * len(plan.reads)
             step = launch_step(store.cfg, len(plan.reads))
             n = math.ceil(len(sids) / step)
@@ -191,8 +193,8 @@ def test_p8_report_counts_follow_the_plans_and_launches(scheme, tmp_path,
         assert (rep.plan_compile_seconds > 0) == (rep.plans_compiled > 0)
         seen |= set(groups)
         assert (rep.repairs_local, rep.repairs_cascaded, rep.repairs_global,
-                rep.blocks_read, rep.launches) == \
-            (local, cascaded, glob, reads, launches)
+                rep.reads_global, rep.blocks_read, rep.launches) == \
+            (local, cascaded, glob, glob_reads, reads, launches)
         assert rep.repairs_cascaded <= rep.repairs_local
         assert rep.kernel_table_chunks == chunks
         # At P8 a global decode reads 96 blocks: two 64-row chunks.
@@ -200,9 +202,9 @@ def test_p8_report_counts_follow_the_plans_and_launches(scheme, tmp_path,
     tele = store.telemetry
     assert tele.plans_compiled == len(seen) > 0
     tele.reset()
-    assert (tele.plans_compiled, tele.repairs_cascaded,
+    assert (tele.plans_compiled, tele.repairs_cascaded, tele.reads_global,
             tele.plan_compile_seconds, tele.kernel_table_chunks) == \
-        (0, 0, 0.0, 0)
+        (0, 0, 0, 0.0, 0)
 
 
 def test_table_chunks_count_ceil_k_over_64():
